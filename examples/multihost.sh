@@ -3,15 +3,16 @@
 # per host (here: 2 local processes with 4 virtual CPU devices each).
 # Each process feeds only the sample span its mesh devices own
 # (fxtpu.parallel.ingest.local_sample_span); process 0 writes the CSV.
-# On a real TPU pod, replace --coordinator with host0's address and drop
-# --local_devices (the TPU runtime supplies the per-host devices).
+# On GPU hosts, replace --coordinator with host0's address and drop
+# --platform cpu and --local_devices: each process then drives one card.
 set -e
 COORD=${FXTPU_COORD:-127.0.0.1:9731}
 REC=${1:?usage: multihost.sh recording.npy [extra flags...]}
 shift || true
 ARGS="--source replay --replay_file $REC --num_samp 16384 --resolution 256 \
       --mode spectrum --omit_plot --no_keyboard --output /tmp/vis_mh.csv \
-      --num_processes 2 --coordinator $COORD --local_devices 4 $*"
+      --num_processes 2 --coordinator $COORD --platform cpu \
+      --local_devices 4 $*"
 python -m fxtpu $ARGS --process_id 1 &
 RANK1=$!
 # if rank 0 dies, don't orphan rank 1 holding the coordinator port

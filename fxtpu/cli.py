@@ -16,7 +16,7 @@ from fxtpu.config import CorrelatorConfig
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="TPU-native FX correlator (JAX/XLA/Pallas).",
+        description="FX correlator (JAX/XLA) for one or more GPUs.",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     # --- reference-parity flags (effex.py:706-770) -----------------------
     parser.add_argument("--time", "-T", default=1.0, type=float,
@@ -110,11 +110,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "(jax.distributed.initialize).")
     parser.add_argument("--local_devices", default=4, type=int,
                         help="Multi-host on CPU: virtual devices per "
-                             "process (ignored on real TPU hosts).")
+                             "process (on GPUs each process drives one "
+                             "card).")
     parser.add_argument("--platform", default="auto",
-                        choices=["auto", "cpu", "tpu"],
+                        choices=["auto", "cpu", "gpu"],
                         help="JAX backend: auto (whatever jax picks), or "
-                             "force cpu/tpu. cpu makes every run — "
+                             "force cpu/gpu. cpu makes every run — "
                              "examples, CI, demos — hardware-free.")
     return parser
 
@@ -133,7 +134,7 @@ def main(argv=None):
         # every host runs this same CLI with its own --process_id.
         from fxtpu.parallel.multihost import init_runtime
         init_runtime(args.process_id, args.num_processes, args.coordinator,
-                     args.local_devices)
+                     args.local_devices, args.platform)
 
     cfg = CorrelatorConfig(
         run_time=args.run_time,

@@ -59,18 +59,14 @@ class CorrelatorConfig:
                                      # whole 2^18 chunk, effex.py:484).  A
                                      # fixed window keeps the cal executable's
                                      # shape stable across block sizes (one
-                                     # compile serves every config — compiles
-                                     # cost ~20 s on this backend) and bounds
-                                     # its FFT size.  Clamped to num_samp.
-    dtype: str = "complex64"       # in-graph dtype; only c64 exists on this
-                                   # backend — complex128 is REJECTED with a
-                                   # pointer to the measured 3.1e-5 bound
-                                   # (reference is complex128 end-to-end,
-                                   #  effex.py:109-110; see SURVEY.md "hard parts")
+                                     # compile serves every config) and
+                                     # bounds its FFT size.  Clamped to
+                                     # num_samp.
+    dtype: str = "complex64"       # in-graph dtype; only c64 is implemented
+                                   # — complex128 is REJECTED (reference is
+                                   # complex128 end-to-end, effex.py:109-110;
+                                   # see SURVEY.md "hard parts")
     clamp_num_samp: bool = True    # clamp to [2^8, 2^18] like effex.py:277-284
-    fused: object = "auto"         # fused Pallas FX kernel: 'auto' (TPU +
-                                   # supported shallow-tap shapes), True
-                                   # (force when supported), False (XLA path)
 
     # --- source selection ----------------------------------------------------
     source: str = "synthetic"      # synthetic | replay | rtlsdr
@@ -147,21 +143,17 @@ class CorrelatorConfig:
                 f"n_branches: {self.nbins} ntaps: {self.ntaps} "
                 f"n_branches*ntaps: {self.nbins * self.ntaps}")
         if self.dtype != "complex64":
-            # The reference runs complex128 end-to-end (effex.py:109-110);
-            # this TPU backend implements NO complex or float64 dtypes, so
-            # a c128 path cannot exist on-device.  Rejected loudly rather
-            # than silently downcast: the f32-planes path measures 3.1e-5
-            # max relative error on the integrated visibility vs a float64
-            # oracle (docs/design.md "Stage matmul precision"), well inside
-            # the product SNR bound, and FXTPU_FFT_PRECISION=highest
-            # tightens the FFT stage matmuls further if needed.
+            # The reference runs complex128 end-to-end (effex.py:109-110).
+            # The device step is single precision; rejected loudly rather
+            # than silently downcast.  fxtpu.reference is the float64
+            # statement of the same step, and chip_smoke.py prints the
+            # measured error against it with its tolerance.
             raise ValueError(
-                f"dtype must be 'complex64', got {self.dtype!r}: this TPU "
-                "backend has no complex/float64 dtypes. The f32 dual-plane "
-                "path is validated to 3.1e-5 relative vs a float64 oracle "
-                "(docs/design.md); set FXTPU_FFT_PRECISION=highest for "
-                "6-pass stage matmuls, or use the impl='complex' CPU "
-                "oracle path for reference-precision cross-checks.")
+                f"dtype must be 'complex64', got {self.dtype!r}: the device "
+                "step runs in single precision (f32 planes, complex64 "
+                "FFT, f32 dots at HIGHEST). For reference-precision "
+                "results use fxtpu.reference, the float64 NumPy statement "
+                "of the same step.")
         if self.source not in ("synthetic", "replay", "rtlsdr"):
             raise ValueError(f"unknown source kind: {self.source}")
         if self.buffer_chunks is None:

@@ -1,5 +1,5 @@
-"""fxtpu.ops — pure-JAX / Pallas DSP ops (the reference's L3+L2 layers,
-``/root/reference/effex/effex.py:497-627``, rebuilt TPU-first)."""
+"""fxtpu.ops — pure-JAX DSP ops (the reference's L3+L2 layers,
+``/root/reference/effex/effex.py:497-627``, rebuilt in JAX)."""
 
 from fxtpu.ops.window import get_window, firwin, pfb_window
 from fxtpu.ops.pfb import (

@@ -1,23 +1,17 @@
-"""MXU-native FFT: Cooley-Tukey with DFT-matrix stages, on dual-plane reals.
+"""Complex FFT on dual-plane reals, through ``jnp.fft``.
 
-Why not ``jnp.fft``: this TPU backend implements no complex dtypes at all,
-and even on backends that do, a radix-small butterfly FFT is VPU/latency
-bound.  On TPU the fast shape is the systolic array, so the transform is
-factored into *matrix multiplications*:
+The planes representation (:class:`~fxtpu.ops.cplx.Cplx`) is kept for the
+whole step; the transform itself joins the two planes into complex64 and
+calls ``jnp.fft``, which XLA lowers to cuFFT on the GPU (single precision
+throughout, no tensor cores) and to its own FFT on the CPU.  Any length
+works, smooth or not (the calibrator pads to ``2n``, e.g. the reference's
+odd ``2*(3+2^12)``).
 
-  N = f1*f2*...*fk  (factors <= 128, the MXU tile) — each stage is a
-  batched [f, f] @ [f, rest] complex matmul (4 real MXU matmuls) plus an
-  elementwise twiddle.  FLOPs are O(N * sum(f)) instead of O(N log N), but
-  each flop runs at MXU rate with perfect tiling: for N=4096 (= 2 stages of
-  128 x ...), that is ~8x the flops of radix-2 at >100x the flop rate.
-
-Non-smooth lengths (e.g. the delay estimator's 2*(3+2^12) = 2 * 4099 with
-4099 prime) fall back to Bluestein's chirp-z, built on a power-of-two FFT
-of size >= 2N-1 — so ANY length works on TPU.
-
-All matmuls force float32 accumulation (``preferred_element_type`` +
-``Precision.HIGHEST``): accuracy vs numpy's complex128 FFT is ~1e-6
-relative for N up to 2^20 (tested in tests/test_planes.py).
+Accuracy against numpy's complex128 FFT is ~2-3e-7 of the peak at 4096 and
+8192 bins on an H100 (``PERF.md``), the f32 rounding floor.  This replaced a
+Cooley-Tukey of dense DFT-matrix matmuls: on the H100 its f32 dots need the
+HIGHEST precision to stay near that floor (at TF32 the error is ~3.6e-4)
+and then take 2-2.5x cuFFT's time.
 
 Reference replaced: cupy.fft.{fft,ifft} usage at
 ``/root/reference/effex/effex.py:516-614`` (via CUDA cuFFT).
@@ -25,267 +19,18 @@ Reference replaced: cupy.fft.{fft,ifft} usage at
 
 from __future__ import annotations
 
-import functools
-import math
-import os
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from fxtpu.ops.cplx import Cplx
-
-#: largest direct-DFT factor — one MXU tile edge
-_LEAF = 128
-
-# Matmul precision for the DFT stages.  On TPU, f32 matmuls are emulated in
-# bf16 passes: HIGHEST = 6 passes (~1e-7 rel), HIGH = 3 passes (~1e-6 rel).
-# HIGH is the default: an order of magnitude inside the products' SNR bound
-# at ~2x the stage throughput.  Override with FXTPU_FFT_PRECISION.
-# Measured on v5e at the flagship 2ch/4096-bin shape: HIGH = 10.36 GS/s at
-# 3.1e-5 max rel err on the integrated visibility vs a float64 oracle;
-# "default" (1-pass bf16) = 13.4 GS/s at 4.1e-3 — a documented speed knob
-# for SNR-limited survey work, NOT the default (the reference is complex128
-# end-to-end and long integrations would expose a 4e-3 systematic).
-#
-# The env is re-read at TRACE time (r2 review: a module-level constant
-# froze the choice at first import, so flipping the env and building a
-# fresh engine silently kept the old precision while fx._STEP_CACHE —
-# which keys on the env var — pretended the change took effect).
-_PRECISION_MAP = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
-}
-
-
-def precision_name() -> str:
-    """The FFT precision knob's current value ('default'|'high'|'highest'),
-    as every consumer must bind it: at trace/build time, not import."""
-    return os.environ.get("FXTPU_FFT_PRECISION", "high").lower()
-
-
-def _mm_kw():
-    return dict(precision=_PRECISION_MAP[precision_name()],
-                preferred_element_type=jnp.float32)
-
-
-@functools.lru_cache(maxsize=64)
-def _dft_mats(n: int, inverse: bool):
-    """DFT matrix W[k, i] = exp(sign * 2 pi j k i / n) as (cos, sin) f32
-    numpy arrays (computed once, in float64, on host)."""
-    sign = 2.0 * np.pi / n if inverse else -2.0 * np.pi / n
-    k = np.arange(n)
-    ang = sign * np.outer(k, k)
-    return (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
-
-
-@functools.lru_cache(maxsize=64)
-def _twiddle(n1: int, n2: int, inverse: bool):
-    """Stage twiddle W_N^{k1*i2}, N = n1*n2, as (cos, sin) f32."""
-    n = n1 * n2
-    sign = 2.0 * np.pi / n if inverse else -2.0 * np.pi / n
-    ang = sign * np.outer(np.arange(n1), np.arange(n2))
-    return (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
-
-
-def good_size(n: int) -> bool:
-    """True if n factors completely into chunks <= _LEAF (no Bluestein)."""
-    return _smooth_factor(n) == 1
-
-
-def _smooth_factor(n: int) -> int:
-    """Strip factors <= _LEAF; returns the residual (1 if fully smooth)."""
-    for f in range(_LEAF, 1, -1):
-        while n % f == 0 and n > _LEAF:
-            n //= f
-        if n <= _LEAF:
-            return 1
-    return n
-
-
-def _best_factor(n: int) -> int:
-    """Pick the leaf factor n1 for one Cooley-Tukey level of length n.
-
-    Lane-utilization heuristic (MEASURED on v5e at nbins=4096:
-    32x128 -> 6.63 Gsamp/s vs balanced 64x64 -> 6.11 Gsamp/s): the
-    remainder n2 sits in the lane (last) dimension of the n1-stage, so a
-    full 128-lane remainder beats balancing the contraction depths:
-
-      * n > LEAF^2   -> n1 = largest factor <= LEAF (remainder stays huge,
-        recursion continues);
-      * LEAF^2 >= n  -> n1 = smallest factor with n/n1 <= LEAF, i.e. the
-        remainder becomes one full-lane direct stage (e.g. 4096 -> 32*128).
-    """
-    if n > _LEAF * _LEAF:
-        for f in range(min(_LEAF, n), 0, -1):
-            if n % f == 0 and f > 1:
-                return f
-        return 1
-    for f in range(2, min(_LEAF, n) + 1):
-        if n % f == 0 and n // f <= _LEAF:
-            return f
-    # nothing fits; take the largest factor <= LEAF
-    for f in range(min(_LEAF, n), 0, -1):
-        if n % f == 0:
-            return f
-    return 1
-
-
-def _direct(re, im, n: int, inverse: bool):
-    c, s = _dft_mats(n, inverse)
-    c = jnp.asarray(c)
-    s = jnp.asarray(s)
-    # (C + jS) @ (re + j im): 4 real matmuls on the MXU
-    out_re = jnp.einsum("kn,...n->...k", c, re, **_mm_kw()) \
-        - jnp.einsum("kn,...n->...k", s, im, **_mm_kw())
-    out_im = jnp.einsum("kn,...n->...k", c, im, **_mm_kw()) \
-        + jnp.einsum("kn,...n->...k", s, re, **_mm_kw())
-    return out_re, out_im
-
-
-def _ct(re, im, n: int, inverse: bool):
-    """Recursive Cooley-Tukey over the LAST axis (length n, smooth)."""
-    if n <= _LEAF:
-        return _direct(re, im, n, inverse)
-    n1 = _best_factor(n)
-    n2 = n // n1
-    batch = re.shape[:-1]
-    # x[i1*n2 + i2] -> [..., n1, n2]
-    re4 = re.reshape(*batch, n1, n2)
-    im4 = im.reshape(*batch, n1, n2)
-    # DFT_n1 along axis -2: A[k1, i2] = sum_i1 W_{n1}^{i1 k1} x[i1, i2]
-    c, s = map(jnp.asarray, _dft_mats(n1, inverse))
-    ar = jnp.einsum("ki,...ij->...kj", c, re4, **_mm_kw()) \
-        - jnp.einsum("ki,...ij->...kj", s, im4, **_mm_kw())
-    ai = jnp.einsum("ki,...ij->...kj", c, im4, **_mm_kw()) \
-        + jnp.einsum("ki,...ij->...kj", s, re4, **_mm_kw())
-    # twiddle W_N^{k1 i2}
-    tc, ts = map(jnp.asarray, _twiddle(n1, n2, inverse))
-    br = ar * tc - ai * ts
-    bi = ar * ts + ai * tc
-    # DFT_n2 along the last axis (recursive)
-    cr, ci = _ct(br, bi, n2, inverse)
-    # X[k2*n1 + k1] = C[k1, k2] -> swap, flatten
-    out_re = jnp.swapaxes(cr, -1, -2).reshape(*batch, n)
-    out_im = jnp.swapaxes(ci, -1, -2).reshape(*batch, n)
-    return out_re, out_im
-
-
-@functools.lru_cache(maxsize=64)
-def _bluestein_consts(n: int, m: int, inverse: bool):
-    """Chirp w[k] = exp(sign j pi k^2 / n) and the FFT of the length-m
-    zero-padded chirp filter b (computed with numpy complex128 on host)."""
-    sign = 1.0 if inverse else -1.0
-    k = np.arange(n)
-    w = np.exp(sign * 1j * np.pi * (k * k % (2 * n)) / n)  # exact mod
-    b = np.zeros(m, dtype=np.complex128)
-    b[0] = 1.0
-    b[1:n] = np.conj(w[1:n])
-    b[m - n + 1:] = np.conj(w[1:n][::-1])
-    bf = np.fft.fft(b)
-    return (w.real.astype(np.float32), w.imag.astype(np.float32),
-            bf.real.astype(np.float32), bf.imag.astype(np.float32))
-
-
-def _bluestein(re, im, n: int, inverse: bool):
-    """Chirp-z FFT for arbitrary (non-smooth) n via a 2^k-size convolution."""
-    m = 1 << int(math.ceil(math.log2(2 * n - 1)))
-    wr, wi, bfr, bfi = map(jnp.asarray, _bluestein_consts(n, m, inverse))
-    # a[k] = x[k] * w[k], zero-padded to m
-    ar = re * wr - im * wi
-    ai = re * wi + im * wr
-    pad = [(0, 0)] * (re.ndim - 1) + [(0, m - n)]
-    ar = jnp.pad(ar, pad)
-    ai = jnp.pad(ai, pad)
-    fr, fi = _ct(ar, ai, m, False)
-    # multiply by precomputed FFT(b)
-    gr = fr * bfr - fi * bfi
-    gi = fr * bfi + fi * bfr
-    # inverse length-m FFT: conj trick folded into _ct(inverse=True)/m
-    hr, hi = _ct(gr, gi, m, True)
-    hr = hr[..., :n] / m
-    hi = hi[..., :n] / m
-    # final chirp
-    out_re = hr * wr - hi * wi
-    out_im = hr * wi + hi * wr
-    return out_re, out_im
-
-
-@functools.lru_cache(maxsize=64)
-def ct_perm(n: int) -> np.ndarray:
-    """Bin permutation of :func:`fft_permuted`: ``out[pos] == X[perm[pos]]``.
-
-    Mirrors the _ct recursion with the final swapaxes SKIPPED at every
-    level: position ``k1*n2 + pos2`` holds natural bin ``perm2[pos2]*n1 + k1``
-    (generalized digit reversal for the plan's mixed radix).
-    """
-    if n <= _LEAF:
-        return np.arange(n)
-    n1 = _best_factor(n)
-    n2 = n // n1
-    p2 = ct_perm(n2)
-    return (p2[None, :] * n1 + np.arange(n1)[:, None]).reshape(n)
-
-
-def _ct_noswap(re, im, n: int, inverse: bool):
-    """_ct without the output corner turn: returns bins in ct_perm(n) order.
-
-    Skipping the swapaxes avoids a full HBM round trip of the spectrum
-    (measured ~15-25% of the fused-step time at nbins=4096); callers whose
-    downstream math is elementwise per bin (FSTC rotate, X-corr) consume
-    the permuted layout directly and unpermute only the tiny integrated
-    visibility.
-    """
-    if n <= _LEAF:
-        return _direct(re, im, n, inverse)
-    n1 = _best_factor(n)
-    n2 = n // n1
-    batch = re.shape[:-1]
-    re4 = re.reshape(*batch, n1, n2)
-    im4 = im.reshape(*batch, n1, n2)
-    c, s = map(jnp.asarray, _dft_mats(n1, inverse))
-    ar = jnp.einsum("ki,...ij->...kj", c, re4, **_mm_kw()) \
-        - jnp.einsum("ki,...ij->...kj", s, im4, **_mm_kw())
-    ai = jnp.einsum("ki,...ij->...kj", c, im4, **_mm_kw()) \
-        + jnp.einsum("ki,...ij->...kj", s, re4, **_mm_kw())
-    tc, ts = map(jnp.asarray, _twiddle(n1, n2, inverse))
-    br = ar * tc - ai * ts
-    bi = ar * ts + ai * tc
-    cr, ci = _ct_noswap(br, bi, n2, inverse)
-    return cr.reshape(*batch, n), ci.reshape(*batch, n)
-
-
-def fft_permuted(x: Cplx, inverse: bool = False) -> Cplx:
-    """FFT over the last axis returning bins in ``ct_perm(n)`` order
-    (requires a smooth length).  ``fft_permuted(x).re[..., pos] ==
-    fft(x).re[..., ct_perm(n)[pos]]``."""
-    n = x.shape[-1]
-    if _smooth_factor(n) != 1:
-        raise ValueError(f"fft_permuted needs a smooth length, got {n}")
-    re = x.re.astype(jnp.float32)
-    im = x.im.astype(jnp.float32)
-    out_re, out_im = _ct_noswap(re, im, n, inverse)
-    if inverse:
-        out_re = out_re / n
-        out_im = out_im / n
-    return Cplx(out_re, out_im)
 
 
 def fft(x: Cplx, inverse: bool = False) -> Cplx:
     """Complex FFT over the LAST axis of a dual-plane array.  Forward is
     unnormalized; inverse divides by N (numpy convention)."""
-    n = x.shape[-1]
-    re = x.re.astype(jnp.float32)
-    im = x.im.astype(jnp.float32)
-    if _smooth_factor(n) == 1:
-        out_re, out_im = _ct(re, im, n, inverse)
-    else:
-        out_re, out_im = _bluestein(re, im, n, inverse)
-    if inverse:
-        out_re = out_re / n
-        out_im = out_im / n
-    return Cplx(out_re, out_im)
+    z = jax.lax.complex(x.re.astype(jnp.float32), x.im.astype(jnp.float32))
+    z = jnp.fft.ifft(z, axis=-1) if inverse else jnp.fft.fft(z, axis=-1)
+    return Cplx(jnp.real(z), jnp.imag(z))
 
 
 def ifft(x: Cplx) -> Cplx:

@@ -1,14 +1,13 @@
 """Dual-plane complex arithmetic: complex values as (re, im) float pairs.
 
-The TPU backend in this environment implements NO complex dtypes (complex64
-multiply/FFT lower to UNIMPLEMENTED), and even where XLA supports them,
-complex is a software pairing over real registers.  So the TPU-native
-representation is explicit: a :class:`Cplx` NamedTuple of two real arrays.
-Being a NamedTuple it is automatically a JAX pytree — it flows through jit,
-shard_map, scan, and collectives.
+The production step keeps complex values as an explicit :class:`Cplx`
+NamedTuple of two real arrays (the repository began on hardware with no
+complex dtypes; whether to move the step to complex64 is an open design
+question, ROADMAP.md).  Being a NamedTuple it is automatically a JAX
+pytree — it flows through jit, shard_map, scan, and collectives.
 
-Everything here is trivially fusable elementwise VPU work; the FFT built on
-top of it (``fxtpu.ops.cfft``) runs the MXU.
+Everything here is elementwise work that XLA fuses; the FFT built on top
+of it is ``fxtpu.ops.cfft``.
 """
 
 from __future__ import annotations

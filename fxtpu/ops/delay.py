@@ -1,6 +1,6 @@
 """Inter-channel delay estimation: FFT cross-correlation + sub-sample peak.
 
-TPU-native, fully jittable reimplementation of the reference estimator
+Fully jittable JAX reimplementation of the reference estimator
 (``/root/reference/effex/effex.py:558-627``):
 
   * zero-pad both series to 2n,

@@ -1,15 +1,15 @@
 """F-stage: polyphase filterbank spectrometer (windowed FIR branches + FFT).
 
-TPU-native replacement for the reference's cuSignal CUDA channelizer
+JAX replacement for the reference's cuSignal CUDA channelizer
 (``cusignal.filtering.channelize_poly`` at ``/root/reference/effex/effex.py:553``).
 Rather than translating that kernel, the PFB is expressed as the classic
 weighted overlap-add decomposition, which maps directly onto XLA:
 
   1. reshape the 1-D stream into rows of ``nbins`` samples,
   2. windowed FIR across ``ntaps`` consecutive rows per output frame
-     (a ``ntaps``-point stencil along the row axis — VPU work, fused by XLA
-     or by the Pallas kernel in ``fxtpu.ops.pfb_pallas``),
-  3. one batched ``nbins``-point FFT per frame (XLA TPU FFT).
+     (a ``ntaps``-point stencil along the row axis, fused by XLA),
+  3. one batched ``nbins``-point FFT per frame (``jnp.fft``, cuFFT on the
+     GPU).
 
 Framing contract (the reference leaves this implicit inside cuSignal, and its
 own pad expression is a no-op — ``effex.py:551``): each input block of
@@ -72,8 +72,7 @@ def pfb_fir(xp, window2d):
     """Windowed FIR across taps: ``y[..., k, b] = sum_t w[t, b] * xp[..., k+t, b]``.
 
     ``xp``: ``[..., S + ntaps - 1, nbins]`` (complex), ``window2d``:
-    ``[ntaps, nbins]`` (real).  Returns ``[..., S, nbins]``.  Pure-XLA path;
-    the Pallas fused kernel is a drop-in replacement (pfb_pallas.pfb_fir_pallas).
+    ``[ntaps, nbins]`` (real).  Returns ``[..., S, nbins]``.
     """
     ntaps, nbins = window2d.shape
     s = xp.shape[-2] - ntaps + 1

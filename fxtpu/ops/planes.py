@@ -1,10 +1,9 @@
-"""Plane-based (TPU-executable) DSP: PFB, FSTC/X-engine, delay estimator.
+"""Plane-based DSP: PFB, FSTC/X-engine, delay estimator.
 
-These mirror the complex-dtype reference implementations in
+These mirror the complex-dtype implementations in
 ``fxtpu.ops.{pfb,xengine,delay}`` exactly (tests assert parity), but operate
-on :class:`~fxtpu.ops.cplx.Cplx` dual-plane reals and the MXU matmul FFT
-(``fxtpu.ops.cfft``) — the representation that actually runs on this TPU
-backend, which implements no complex dtypes (see cfft module docstring).
+on :class:`~fxtpu.ops.cplx.Cplx` dual-plane reals — the representation the
+production step runs in.  The FFT is ``fxtpu.ops.cfft`` (``jnp.fft``).
 """
 
 from __future__ import annotations
@@ -40,28 +39,27 @@ def dc_remove_planes(iq: Cplx) -> Cplx:
 
 def pfb_fir_planes(xp: Cplx, window2d) -> Cplx:
     """Windowed FIR across taps on planes (same math as ops.pfb.pfb_fir:
-    real window times both planes)."""
+    real window times both planes).
+
+    Both planes go through the tap loop as ONE stacked ``[2, ...]`` array
+    held behind an optimization barrier.  Measured on an H100 at 32 taps
+    and 8192 bins, the per-plane form compiled to one loop fusion that took
+    2.1 ms per 2^21-sample block; this form takes 0.23 ms (PERF.md)."""
     ntaps, nbins = window2d.shape
     s = xp.shape[-2] - ntaps + 1
-    w = window2d.astype(xp.dtype)
-    acc_re = w[0] * jax.lax.slice_in_dim(xp.re, 0, s, axis=-2)
-    acc_im = w[0] * jax.lax.slice_in_dim(xp.im, 0, s, axis=-2)
+    st = jax.lax.optimization_barrier(jnp.stack([xp.re, xp.im]))
+    w = window2d.astype(st.dtype)
+    acc = w[0] * jax.lax.slice_in_dim(st, 0, s, axis=-2)
     for t in range(1, ntaps):
-        acc_re = acc_re + w[t] * jax.lax.slice_in_dim(xp.re, t, t + s, axis=-2)
-        acc_im = acc_im + w[t] * jax.lax.slice_in_dim(xp.im, t, t + s, axis=-2)
-    return Cplx(acc_re, acc_im)
+        acc = acc + w[t] * jax.lax.slice_in_dim(st, t, t + s, axis=-2)
+    return Cplx(acc[0], acc[1])
 
 
 def spectrometer_planes(x: Cplx, window2d, nbins: int,
-                        history: Optional[Cplx] = None,
-                        permuted: bool = False
+                        history: Optional[Cplx] = None
                         ) -> Tuple[Cplx, Cplx]:
     """Streaming PFB spectrometer on planes: returns (spectra, new_history).
-    Framing contract identical to ops.pfb.spectrometer_poly_stream.
-
-    ``permuted=True`` returns spectra bins in ``cfft.ct_perm(nbins)`` order
-    (skips the FFT's output corner turn — one less HBM round trip; see
-    cfft.fft_permuted)."""
+    Framing contract identical to ops.pfb.spectrometer_poly_stream."""
     ntaps = window2d.shape[0]
     nsamp = x.shape[-1]
     s = nsamp // nbins
@@ -76,8 +74,7 @@ def spectrometer_planes(x: Cplx, window2d, nbins: int,
         xp, new_history = rows, zero_history_planes(batch, nbins, ntaps,
                                                     x.dtype)
     fir = pfb_fir_planes(xp, window2d)
-    f = cfft.fft_permuted if permuted else cfft.fft
-    return f(fir), new_history
+    return cfft.fft(fir), new_history
 
 
 def pack_delays(delays, frequency) -> np.ndarray:
@@ -108,23 +105,16 @@ def _unpack_delays(delays, nch_ndim: int):
     return d, None
 
 
-def fstc_rotate_planes(spectra: Cplx, delays, bandwidth, frequency,
-                       perm: Optional[np.ndarray] = None) -> Cplx:
+def fstc_rotate_planes(spectra: Cplx, delays, bandwidth, frequency) -> Cplx:
     """Per-channel FSTC phase ramp exp(+2 pi j f_RF d_c) (see
     ops.xengine.fstc_rotate; effex.py:516-520 contract).
 
     ``delays``: plain ``[nch]`` seconds, or the ``[nch, 2]`` packed form
-    from :func:`pack_delays` (full-precision carrier phase).
-
-    ``perm``: bin permutation of the spectra layout (``cfft.ct_perm``) when
-    the F-stage used :func:`~fxtpu.ops.cfft.fft_permuted` — the ramp is
-    evaluated on the matching permuted RF frequency table (host-side)."""
+    from :func:`pack_delays` (full-precision carrier phase)."""
     nbins = spectra.shape[-1]
     d, frac = _unpack_delays(delays, 1)
     fbase = np.fft.fftfreq(nbins, d=1.0 / bandwidth)
     fr = (fbase if frac is not None else fbase + frequency).astype(np.float32)
-    if perm is not None:
-        fr = fr[perm]
     freqs = jnp.asarray(fr)
     if frac is not None:
         phase = (2.0 * np.pi) * (freqs[None, :] * d[:, None]
@@ -141,10 +131,15 @@ def fstc_rotate_planes(spectra: Cplx, delays, bandwidth, frequency,
 #: Baseline count at/above which the X-stage switches from per-pair
 #: gathers to the Gram-matrix matmul.  Per-pair materializes two
 #: [nbl, frames, nbins] arrays (HBM traffic grows with nbl); the Gram form
-#: reads the spectrum exactly twice and contracts frames on the MXU
-#: (traffic constant in nbl).  Measured crossover on v5e is low — the
-#: 2-channel single-baseline case keeps the cheap elementwise form.
+#: reads the spectrum exactly twice and contracts frames in one batched
+#: dot (traffic constant in nbl).  The 2-channel single-baseline case
+#: keeps the cheap elementwise form.
 _GRAM_MIN_BASELINES = 4
+
+#: Precision of the Gram X-stage's f32 dots.  Named explicitly: on the GPU
+#: the default f32 dot runs in TF32 (~3 decimal digits), which the float64
+#: reference comparison does not accept (PERF.md).
+GRAM_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _xcorr_gram(spectra: Cplx, pairs) -> Cplx:
@@ -152,12 +147,12 @@ def _xcorr_gram(spectra: Cplx, pairs) -> Cplx:
 
     G[b, p, q] = sum_s spec[p, s, b] * conj(spec[q, s, b]) — one
     dot_general with the frame axis contracted and the bin axis batched
-    (complex product expanded over the two real planes: 4 real matmuls),
-    then the requested [nbl] (p, q) entries are gathered from the tiny
-    [nbins, nch, nch] result."""
+    (complex product expanded over the two real planes: 4 real matmuls,
+    at :data:`GRAM_PRECISION`), then the requested [nbl] (p, q) entries are
+    gathered from the tiny [nbins, nch, nch] result."""
     n_frames = spectra.shape[-2]
     kw = dict(dimension_numbers=(((1,), (1,)), ((2,), (2,))),
-              precision=jax.lax.Precision.HIGH,
+              precision=GRAM_PRECISION,
               preferred_element_type=jnp.float32)
     # [p, s, b] x [q, s, b] -> [b, p, q]
     rr = jax.lax.dot_general(spectra.re, spectra.re, **kw)
@@ -174,8 +169,7 @@ def _xcorr_gram(spectra: Cplx, pairs) -> Cplx:
 def xcorr_baselines_planes(spectra: Cplx, pairs, shift: bool = True) -> Cplx:
     """All-baseline frame-averaged cross power, fftshifted
     (ops.xengine.xcorr_baselines parity).  ``shift=False`` skips the
-    fftshift (permuted-bin pipelines reorder the tiny integrated
-    visibility in one final gather instead)."""
+    fftshift (the sharded step shifts the global bin-sharded result)."""
     pairs = jnp.asarray(pairs)
     if len(pairs) >= _GRAM_MIN_BASELINES:
         xps = _xcorr_gram(spectra, pairs)

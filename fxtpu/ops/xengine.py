@@ -1,6 +1,6 @@
 """X-stage: fractional-sample delay correction, conjugate multiply, integrate.
 
-TPU-native reimplementation of the reference's cross-power computation
+JAX reimplementation of the reference's cross-power computation
 (``/root/reference/effex/effex.py:497-527``), generalized from the fixed
 (0, 1) channel pair to N channels with an arbitrary baseline pair map.
 
@@ -81,7 +81,7 @@ def baseline_pairs(nchan: int, include_autos: bool = False) -> np.ndarray:
     """Upper-triangular baseline map: ``[n_baselines, 2]`` int array.
 
     For nchan=2 without autos this is the reference's single (0, 1) pair;
-    for 8 inputs it is the 36-with-autos / 28-cross map (BASELINE config 5).
+    for 8 inputs it is the 36-with-autos / 28-cross map (an 8-input array).
     Cross pairs are ordered (p < q) row-major; autos, if included, come first.
     """
     pairs = []
@@ -99,8 +99,8 @@ def xcorr_baselines(spectra, pairs):
     Returns ``[nbl, nbins]`` fftshifted visibilities.
 
     For small nch the gather+elementwise form below is optimal; at large nch
-    the same quantity is the per-bin rank-S update ``F_b F_b^H`` (an MXU
-    matmul per bin) — see fxtpu.ops.xengine_mxu notes.
+    the same quantity is the per-bin rank-S update ``F_b F_b^H`` (a batched
+    matmul per bin, ``fxtpu.ops.planes._xcorr_gram``).
     """
     pairs = jnp.asarray(pairs)
     gp = spectra[pairs[:, 0]]          # [nbl, S, nbins]

@@ -1,20 +1,17 @@
-"""Per-block ICI collective-volume accounting for the sharded FX step.
+"""Per-block collective-volume accounting for the sharded FX step.
 
-The ≥85% scaling target (BASELINE.md) cannot be measured on a one-chip
-rig, but the thing that predicts it can be PROVEN: the bytes each block
-moves over ICI.  This module gives both sides of that proof:
+Scaling across cards cannot be judged from one card's numbers, but the
+thing that predicts it can be PROVEN: the bytes each block moves between
+devices.  This module gives both sides of that proof:
 
   * :func:`predicted_volume` — the analytic per-block payload model from
     the sharded-step design (`parallel/sharded.py`):
 
-      - halo ``ppermute``: the stacked ``[2, nch, ntaps-1, nbins]`` tail
-        (packed ``/4`` for int8-native),
-      - psums: the fused path reduces the raw cross-power ``[nbl, nbins]``
-        + the DC accumulators T/GJ ``[nch, nbins]`` + the stream tail;
-        the XLA path reduces the integrated ``[nbl, nbins/F]`` + tail,
-      - corner turn ``all_to_all`` (XLA path only, F>1): the full local
-        spectra ``[2, nch, S/n, nbins]`` — O(num_samp) per device and the
-        reason the fused no-corner-turn design wins at scale.
+      - halo ``ppermute``: the stacked ``[2, nch, ntaps-1, nbins]`` tail,
+      - psums: the integrated ``[nbl, nbins/F]`` product + the stream
+        tail + the DC-removal mean,
+      - corner turn ``all_to_all`` (F>1): the full local spectra
+        ``[2, nch, S/n, nbins]`` — O(num_samp) per device.
 
   * :func:`measured_volume` — the same numbers read back from the ACTUAL
     compiled executable: lower + compile the jitted step, parse every
@@ -22,12 +19,10 @@ moves over ICI.  This module gives both sides of that proof:
     all-gather / reduce-scatter, sync or async-start form) and sum each
     op's result payload bytes.
 
-`tests/test_accounting.py` asserts they agree, so the design claim
-("collective traffic per block drops from O(num_samp) to O(nbl·nbins) +
-the halo", sharded.py:263-265) is checked against what XLA actually
-emits, not just stated.  The reference has no distributed execution at
-all (its transport is single-host multiprocessing queues,
-``/root/reference/effex/effex.py:105-106``).
+`tests/test_accounting.py` asserts they agree, so the volume model is
+checked against what XLA actually emits, not just stated.  The reference
+has no distributed execution at all (its transport is single-host
+multiprocessing queues, ``/root/reference/effex/effex.py:105-106``).
 
 Payload convention: bytes of each collective's RESULT array(s) — the
 per-device payload the transfer delivers (compiled HLO text carries
@@ -36,8 +31,7 @@ count once: `-done` lines never match (no '(' directly after the op
 token), and the `-start` result tuples of collective-permute/all-to-all
 — `(operand-alias, result, u32[] contexts...)` — are halved after
 dropping the scalar context tokens, per their documented HLO shape.
-Not wire bytes — those depend on ring-vs-tree choices XLA makes per
-topology.
+Not wire bytes — those depend on the algorithms NCCL picks per topology.
 """
 
 from __future__ import annotations
@@ -77,15 +71,25 @@ def _shape_bytes(text: str) -> int:
 def measured_volume(step, *example_args) -> Dict[str, int]:
     """Compile ``step`` (a jitted callable) on its example args and return
     per-collective-op result-payload bytes, summed over the program."""
-    hlo = step.lower(*example_args).compile().as_text()
-    out = {op: 0 for op in _OPS}
+    return hlo_volume(step.lower(*example_args).compile().as_text())
+
+
+def collective_lines(hlo: str):
+    """The (op, line) pairs of every collective instruction in compiled
+    HLO text, sync or async-start form."""
     for line in hlo.splitlines():
         m = _LINE_RE.search(line)
-        if not m or " = " not in line[: m.start() + 1]:
-            continue
+        if m and " = " in line[: m.start() + 1]:
+            yield m, line
+
+
+def hlo_volume(hlo: str) -> Dict[str, int]:
+    """Per-collective-op result-payload bytes of compiled HLO text."""
+    out = {op: 0 for op in _OPS}
+    for m, line in collective_lines(hlo):
         # the result shape(s): between ' = ' and the op token.  Dtype-
-        # prefixed brackets only — layout tiles T(8,128), replica_groups
-        # =[1,8] and u32[] context tokens all fail _shape_bytes's filter
+        # prefixed brackets only — layout tiles, replica_groups=[1,8] and
+        # u32[] context tokens all fail _shape_bytes's filter
         seg = line[: m.start()].split(" = ", 1)[1]
         nbytes = _shape_bytes(seg)
         if m.group(2):
@@ -93,23 +97,22 @@ def measured_volume(step, *example_args) -> Dict[str, int]:
                 # async-start tuple = (operand alias, result, ..) with
                 # operand size == result size for these two ops — halve
                 nbytes //= 2
-            else:
-                # all-gather/reduce-scatter/all-reduce -start tuples mix
-                # DIFFERENT operand and result sizes; halving would be
-                # silently wrong, so fail loudly if XLA ever emits them
-                # for these programs (r3 advisor finding)
+            elif m.group(1) != "all-reduce":
+                # all-reduce-start's result is its output (a tuple of
+                # outputs when XLA combined several); all-gather and
+                # reduce-scatter -start tuples mix operand and result
+                # sizes, so halving would be silently wrong — fail loudly
                 raise NotImplementedError(
                     f"async {m.group(1)}-start in compiled HLO: the "
                     "operand/result tuple sizes differ for this op — "
-                    "extend measured_volume to subtract the operand "
-                    "alias instead of halving")
+                    "extend hlo_volume to subtract the operand alias "
+                    "instead of halving")
         out[m.group(1)] += nbytes
     return out
 
 
 def predicted_volume(*, nch: int, nbl: int, nbins: int, num_samp: int,
                      ntaps: int, mesh_time: int, mesh_freq: int,
-                     fused: bool, int8_native: bool = False,
                      continuum: bool = False) -> Dict[str, int]:
     """Analytic per-block collective payload (bytes) of the sharded step.
 
@@ -122,132 +125,91 @@ def predicted_volume(*, nch: int, nbl: int, nbins: int, num_samp: int,
     out = {op: 0 for op in _OPS}
     if n == 1:
         return out
-    # stacked-planes tail [2, nch, halo, nbins]; int8-native moves PACKED
-    # int32 words (4 bins per lane) — the 4x the mesh now preserves
-    tail = 2 * nch * halo * (nbins // 4 if int8_native else nbins) * f32
+    # stacked-planes tail [2, nch, halo, nbins]
+    tail = 2 * nch * halo * nbins * f32
     out["collective-permute"] = tail if ntaps > 1 else 0
-    if fused:
-        # psums: xp [2,1,nbl,nbins] + T [2,1,nch,nbins] + GJ(U) same
-        # + mu [2(re,im),1,nch] + the stream tail handoff
-        out["all-reduce"] = (2 * nbl * nbins * f32
-                             + 2 * 2 * nch * nbins * f32
-                             + 2 * nch * f32
-                             + tail)
-        # the fused kernel's X-stage never materializes frame-sharded
-        # spectra, so there is NO corner turn
-        out["all-to-all"] = 0
-    else:
-        # DC-removal mean over the sample-sharded block [2, nch]
-        # + pmean of the integrated product [2, nbl, nbins/F]
-        # + the stream-tail handoff psum
-        out["all-reduce"] = (2 * nch * f32
-                             + (2 * nbl * (nbins // mesh_freq) * f32
-                                if mesh_time > 1 else 0)
-                             + (tail if ntaps > 1 else 0))
-        if mesh_freq > 1:
-            # corner turn: each device's FULL local spectra block
-            # [2, nch, s_rows/n, nbins] — O(num_samp), the scaling wall
-            out["all-to-all"] = 2 * nch * (s_rows // n) * nbins * f32
-            # fftshift of the bin-sharded output: a halves swap across
-            # the freq axis [2, nbl, nbins/F] (SPECTRUM products only)
-            if not continuum:
-                out["collective-permute"] += (
-                    2 * nbl * (nbins // mesh_freq) * f32)
+    # DC-removal mean over the sample-sharded block [2, nch]
+    # + pmean of the integrated product [2, nbl, nbins/F]
+    # + the stream-tail handoff psum
+    out["all-reduce"] = (2 * nch * f32
+                         + (2 * nbl * (nbins // mesh_freq) * f32
+                            if mesh_time > 1 else 0)
+                         + (tail if ntaps > 1 else 0))
+    if mesh_freq > 1:
+        # corner turn: each device's FULL local spectra block
+        # [2, nch, s_rows/n, nbins] — O(num_samp), the scaling wall
+        out["all-to-all"] = 2 * nch * (s_rows // n) * nbins * f32
+        # fftshift of the bin-sharded output: a halves swap across
+        # the freq axis [2, nbl, nbins/F]
+        out["collective-permute"] += 2 * nbl * (nbins // mesh_freq) * f32
+        if continuum:
+            # the bin mean of the bin-sharded product [2, nbl]
+            out["all-reduce"] += 2 * nbl * f32
     return out
 
 
-def predicted_volume_blockdp(*, nch: int, nbins: int, ntaps: int,
-                             n_shards: int,
-                             int8_native: bool = False) -> Dict[str, int]:
-    """Analytic per-DISPATCH collective payload (bytes) of the block-DP
-    fused multi step (`parallel/sharded._make_fused_sharded_multi`): one
-    boundary-history ppermute (each shard's last-block corrected tail —
-    plus the previous-block mean for int8-native's dict history) and one
-    masked psum that replicates the last shard's carried history.  Per
-    BLOCK, divide by K — the whole point: collective bytes amortize
-    K-fold vs the frame-sharded per-block step."""
-    halo = ntaps - 1
-    f32 = 4
-    out = {op: 0 for op in _OPS}
-    if n_shards == 1:
-        return out
-    # Cplx tail = 2 planes; packed int32 words carry 4 bins per lane
-    tail = 2 * nch * halo * (nbins // 4 if int8_native else nbins) * f32
-    mu = 2 * nch * f32 if int8_native else 0  # dict history carries mu_prev
-    out["collective-permute"] = tail + mu if ntaps > 1 else mu
-    out["all-reduce"] = tail + mu if ntaps > 1 else mu
-    return out
+#: NOMINAL per-card, one-direction NVLink bandwidth (bytes/s) by
+#: ``device_kind`` substring — the denominator of the collective-time
+#: model.  H100 SXM: 900 GB/s of NVLink to the other cards of the host,
+#: 450 GB/s each way (NVIDIA H100 data sheet).  A published rate, not a
+#: measurement; no program reaches it.
+LINK_BW = {"H100": 450e9}
 
 
-#: Nominal ONE-DIRECTION, PER-LINK ICI bandwidth (bytes/s) by device
-#: generation — the denominator of the collective-time model.  NOMINAL
-#: published-order figures (v5e 2D torus, 4 links/chip at ~45 GB/s/dir
-#: ~= the quoted 1.6 Tb/s aggregate; v5p 3D torus, 6 links at ~90 ~= 4.8
-#: Tb/s; v4 ~2.4 Tb/s): like bench._CHIP_PEAKS these are
-#: denominators-in-waiting, not measurements — no multi-chip hardware
-#: has ever been attached to this rig.
-ICI_LINK_BW = {"v5e": 45e9, "v5p": 90e9, "v4": 50e9}
+def link_bandwidth(device_kind: str) -> float:
+    """Nominal one-direction NVLink rate of a card; raises for a card the
+    table does not list (no rate is assumed)."""
+    for key, bw in LINK_BW.items():
+        if key.lower() in device_kind.lower():
+            return bw
+    raise KeyError(f"no NVLink rate known for device {device_kind!r}; "
+                   f"known: {sorted(LINK_BW)}")
 
 
 def predicted_collective_time(volumes: Dict[str, int], n_shards: int,
                               link_bw: float) -> float:
-    """Seconds to move one step's collective payload over a 1D ring of
-    ``n_shards`` devices with per-direction link bandwidth ``link_bw``.
+    """Seconds to move one step's collective payload among ``n_shards``
+    cards of one host joined all to all through NVSwitch, each card
+    injecting at most ``link_bw`` bytes/s in each direction.
 
-    Standard ring-algorithm costs on the linearized mesh axis (our
-    collectives all ride one lax axis): a permute crosses each link
-    once (bytes/BW); a ring all-reduce moves 2(n-1)/n of its payload
-    per device; all-to-all and all-gather/reduce-scatter (n-1)/n.
-    No-overlap model — compute/collective overlap only helps, so the
-    efficiency this predicts is a LOWER bound given the volumes."""
+    Through a switch no transfer crosses an intermediate card, so every
+    pattern is bound by each card's own injection rate: a permute sends
+    its payload once (bytes/BW); an all-to-all sends the (n-1)/n of its
+    payload bound for the other cards concurrently; all-gather and
+    reduce-scatter move (n-1)/n; an all-reduce, as the ring (or
+    reduce-scatter + all-gather) NCCL runs, 2(n-1)/n.  No-overlap model —
+    compute/collective overlap only helps, so the efficiency this
+    predicts is a LOWER bound given the volumes."""
     if n_shards <= 1:
         return 0.0
-    ring = (n_shards - 1) / n_shards
+    frac = (n_shards - 1) / n_shards
     t = volumes.get("collective-permute", 0) / link_bw
-    t += 2 * ring * volumes.get("all-reduce", 0) / link_bw
-    t += ring * volumes.get("all-to-all", 0) / link_bw
-    t += ring * (volumes.get("all-gather", 0)
+    t += 2 * frac * volumes.get("all-reduce", 0) / link_bw
+    t += frac * volumes.get("all-to-all", 0) / link_bw
+    t += frac * (volumes.get("all-gather", 0)
                  + volumes.get("reduce-scatter", 0)) / link_bw
     return t
 
 
 def predicted_scaling_efficiency(*, samples_per_s_single: float, nch: int,
                                  nbl: int, nbins: int, num_samp: int,
-                                 ntaps: int, n_shards: int, chip: str = "v5e",
-                                 path: str = "fused",
-                                 mesh_freq: int = 1,
-                                 int8_native: bool = False,
-                                 continuum: bool = False,
-                                 blocks_per_dispatch: int = 1) -> dict:
-    """The §7a byte accounting turned into a time prediction (r3 VERDICT
-    next #7): given the MEASURED single-chip rate, predict the n-shard
-    scaling efficiency at nominal ICI link rates.
+                                 ntaps: int, n_shards: int,
+                                 device_kind: str, mesh_freq: int = 1,
+                                 continuum: bool = False) -> dict:
+    """The byte accounting turned into a time prediction: given a MEASURED
+    single-card rate, predict the n-card scaling efficiency of the
+    frame-sharded per-block step at the nominal NVLink rate.
 
       eff = t_comp/n / (t_comp/n + t_coll)
 
-    ``path``: 'fused' / 'xla' (frame-sharded per-block step, mesh_time =
-    n) / 'blockdp' (the K-block multi dispatch; collective bytes
-    amortize over ``blocks_per_dispatch``).  Returns the per-block
-    compute/collective times and the efficiency — the quantitative form
-    of the "≥85% expected" claim, replacing the functional-only CPU
-    artifact as its published evidence."""
+    Returns the per-block compute/collective times and the efficiency."""
     t_comp = nch * num_samp / samples_per_s_single
-    if path == "blockdp":
-        vols = predicted_volume_blockdp(nch=nch, nbins=nbins, ntaps=ntaps,
-                                        n_shards=n_shards,
-                                        int8_native=int8_native)
-        t_coll = predicted_collective_time(
-            vols, n_shards, ICI_LINK_BW[chip]) / max(blocks_per_dispatch, 1)
-    else:
-        vols = predicted_volume(nch=nch, nbl=nbl, nbins=nbins,
-                                num_samp=num_samp, ntaps=ntaps,
-                                mesh_time=n_shards // mesh_freq,
-                                mesh_freq=mesh_freq,
-                                fused=path == "fused",
-                                int8_native=int8_native,
-                                continuum=continuum)
-        t_coll = predicted_collective_time(vols, n_shards,
-                                           ICI_LINK_BW[chip])
+    vols = predicted_volume(nch=nch, nbl=nbl, nbins=nbins,
+                            num_samp=num_samp, ntaps=ntaps,
+                            mesh_time=n_shards // mesh_freq,
+                            mesh_freq=mesh_freq, continuum=continuum)
+    t_coll = predicted_collective_time(vols, n_shards,
+                                       link_bandwidth(device_kind))
     t_shard = t_comp / n_shards
     return {
         "per_block_compute_s": t_shard,

@@ -1,7 +1,7 @@
 """Host -> mesh ingest: sharded device placement of IQ blocks.
 
 The reference's ingest is ``gpu_iq[:] = data`` into cuSignal pinned memory
-(``/root/reference/effex/effex.py:109-110,391-392``).  The TPU-native
+(``/root/reference/effex/effex.py:109-110,391-392``).  The mesh
 equivalents (SURVEY.md §5.8):
 
   * single process: ``jax.device_put`` with the block's NamedSharding —
@@ -25,8 +25,7 @@ import numpy as np
 from fxtpu.ops.cplx import Cplx
 from fxtpu.parallel.mesh import FREQ_AXIS, TIME_AXIS, block_sharding
 
-__all__ = ["block_sharding", "put_block", "put_packed",
-           "local_sample_span"]
+__all__ = ["block_sharding", "put_block", "local_sample_span"]
 
 
 def put_block(block: np.ndarray, mesh: Optional[jax.sharding.Mesh],
@@ -64,33 +63,6 @@ def put_block(block: np.ndarray, mesh: Optional[jax.sharding.Mesh],
     if jax.process_count() == 1:
         return Cplx(jax.device_put(re, sharding), jax.device_put(im, sharding))
     gshape = (*re.shape[:-1], global_num_samp or re.shape[-1])
-    mk = jax.make_array_from_process_local_data
-    return Cplx(mk(sharding, re, gshape), mk(sharding, im, gshape))
-
-
-def put_packed(re: np.ndarray, im: np.ndarray,
-               mesh: jax.sharding.Mesh,
-               global_frames: Optional[int] = None) -> Cplx:
-    """Place PACKED int8-native planes onto the mesh, frame-sharded.
-
-    ``re``/``im``: int32 packed words ``[nch, S, nbins//4]`` (4 bins per
-    word, host-packed by runtime.native.pack_planes_i8) — the fused
-    kernel's native int8 ingest form.  Sharding splits the FRAME axis
-    across the linearized (time, freq) mesh, matching the sharded fused
-    step's ``P(None, AXES, None)`` input spec, so the packed words land
-    on the shard whose kernel consumes them with no device relayout.
-
-    Multi-process: ``re``/``im`` are this process's local frame span
-    (local_sample_span // nbins frames) and ``global_frames`` names the
-    global frame count.
-    """
-    sharding = jax.sharding.NamedSharding(
-        mesh, jax.sharding.PartitionSpec(None, (TIME_AXIS, FREQ_AXIS),
-                                         None))
-    if jax.process_count() == 1:
-        return Cplx(jax.device_put(re, sharding),
-                    jax.device_put(im, sharding))
-    gshape = (re.shape[0], global_frames or re.shape[1], re.shape[2])
     mk = jax.make_array_from_process_local_data
     return Cplx(mk(sharding, re, gshape), mk(sharding, im, gshape))
 

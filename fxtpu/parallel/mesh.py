@@ -1,6 +1,6 @@
 """Device-mesh construction for the correlator.
 
-Two mesh axes (SURVEY.md §2.2 / §5.7 — the TPU-native generalization of the
+Two mesh axes (SURVEY.md §2.2 / §5.7 — the multi-device generalization of the
 reference's producer/consumer process parallelism):
 
   * ``time``  — time-block (PFB frame) sharding: the data-parallel analog.
@@ -8,7 +8,7 @@ reference's producer/consumer process parallelism):
   * ``freq``  — frequency-bin sharding: the tensor-parallel analog.  The
     F-stage output is corner-turned (``all_to_all``) from frame-sharded to
     bin-sharded layout for the X-stage — the classic FX-correlator corner
-    turn, riding ICI instead of PCIe/DCN.
+    turn, over NVLink between the cards of one host.
 
 The PFB's ``(ntaps-1)*nbins`` samples of tap history at every shard boundary
 travel by ``ppermute`` halo exchange over the linearized (time, freq) shard
@@ -16,7 +16,9 @@ index (SURVEY.md §5.7: the ring/context-parallel analog).
 
 Multi-host: call :func:`init_distributed` on every host before building the
 mesh; ``jax.make_mesh`` lays out the global device order so that the 'freq'
-axis (all_to_all-heavy) stays within hosts/ICI where possible.
+axis (all_to_all-heavy) stays within hosts where possible.  The cards of
+one host are joined all to all, so the mesh follows the algorithm, not a
+physical topology.
 """
 
 from __future__ import annotations

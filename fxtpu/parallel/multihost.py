@@ -1,23 +1,32 @@
 """Multi-process (multi-host) execution: worker entry point + launcher.
 
-This is the executable half of SURVEY.md §5.8 — the TPU-native
+This is the executable half of SURVEY.md §5.8 — the multi-controller
 generalization of the reference's single-host transport (pickled arrays
-over ``multiprocessing.Queue``, ``/root/reference/effex/effex.py:105-110``)
-to a *multi-controller* JAX runtime: every process runs the same program
-over a global device mesh, feeds only the sample span its own devices own
+over ``multiprocessing.Queue``, ``/root/reference/effex/effex.py:105-110``):
+every process runs the same program over a global device mesh, feeds only
+the sample span its own devices own
 (``fxtpu.parallel.ingest.local_sample_span``), and places data with
 ``jax.make_array_from_process_local_data``; XLA collectives do the rest.
 
+Backends:
+
+  * GPU (the default): one card per process.  :func:`launch` pins each
+    worker's card with ``CUDA_VISIBLE_DEVICES``; a process started by hand
+    takes local card ``process_id`` (every process on one host) unless
+    ``CUDA_VISIBLE_DEVICES`` already names a single card.  A JAX process
+    reserves most of a card's memory when it starts, so two processes
+    must never share one.
+  * CPU, only when asked (``platform='cpu'``, ``--platform cpu``, or
+    ``JAX_PLATFORMS=cpu`` as the test harness sets it): each process owns
+    ``local_devices`` virtual CPU devices and collectives run over gloo/TCP.
+
 Two entry styles:
 
-  * :func:`launch` — spawn N local worker processes (one per "host") that
-    rendezvous via ``jax.distributed.initialize``.  On this machine the
-    processes share one node and talk gloo-over-TCP — the same code path a
-    real multi-host TPU pod runs over DCN (each process owning a slice of
-    real chips instead of virtual CPU devices).
+  * :func:`launch` — spawn N local worker processes that rendezvous via
+    ``jax.distributed.initialize``.
   * ``python -m fxtpu.parallel.multihost --role ... --process_id i ...`` —
-    the worker itself; also what a real pod deployment runs per host (with
-    ``--coordinator host0:port``).
+    the worker itself; also what a multi-host deployment runs per host
+    (with ``--coordinator host0:port``).
 
 Roles:
 
@@ -44,48 +53,69 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def wants_cpu(platform: str = "auto") -> bool:
+    """True when this run was asked to use the CPU backend: explicitly
+    (``platform='cpu'``) or, under ``'auto'``, by ``JAX_PLATFORMS=cpu``."""
+    if platform == "auto":
+        return os.environ.get("JAX_PLATFORMS", "") == "cpu"
+    return platform == "cpu"
+
+
 def init_runtime(process_id: int, num_processes: int, coordinator: str,
-                 local_devices: int = 4):
+                 local_devices: int = 4, platform: str = "auto"):
     """Bring up the multi-controller runtime in THIS process.  Must run
-    before any JAX backend touch.  CPU backend uses gloo collectives (the
-    cross-host path a TPU pod rides over DCN); on a real multi-host TPU
-    deployment the TPU runtime supplies its own collectives and
-    ``local_devices`` is ignored."""
-    on_tpu = os.environ.get("JAX_PLATFORMS", "") == "tpu"
-    if not on_tpu:
+    before any JAX backend touch.  On the CPU (only when asked, see
+    :func:`wants_cpu`) each process gets ``local_devices`` virtual devices
+    and gloo collectives; otherwise the GPU backend with one card per
+    process (module docstring)."""
+    cpu = wants_cpu(platform)
+    kw = {}
+    if cpu:
         flags = os.environ.get("XLA_FLAGS", "")
         if "--xla_force_host_platform_device_count" not in flags:
             os.environ["XLA_FLAGS"] = (
                 flags + " --xla_force_host_platform_device_count"
                 f"={local_devices}").strip()
+    elif "," in os.environ.get("CUDA_VISIBLE_DEVICES", ","):
+        kw["local_device_ids"] = [process_id]
     import jax
-    if not on_tpu:
+    if cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
+    elif platform != "auto":
+        jax.config.update("jax_platforms", platform)
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id, **kw)
     return jax
 
 
 def launch(num_processes: int, role: str, role_args: List[str],
            local_devices: int = 4, timeout: float = 600.0,
-           coordinator: Optional[str] = None):
+           coordinator: Optional[str] = None, platform: str = "auto"):
     """Spawn ``num_processes`` local workers and wait for all of them.
-    Returns the list of ``subprocess.CompletedProcess``; raises on any
-    nonzero exit with the failing worker's output."""
+    On the GPU each worker is pinned to card ``pid`` through
+    ``CUDA_VISIBLE_DEVICES``.  Returns the list of
+    ``subprocess.CompletedProcess``; raises on any nonzero exit with the
+    failing worker's output."""
     coordinator = coordinator or f"127.0.0.1:{_free_port()}"
+    cpu = wants_cpu(platform)
+    cards = [c for c in os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+             if c]
     procs = []
     for pid in range(num_processes):
         env = dict(os.environ)
         # each worker picks its own device-count flag in init_runtime
         env.pop("XLA_FLAGS", None)
+        if not cpu:
+            env["CUDA_VISIBLE_DEVICES"] = cards[pid] if cards else str(pid)
         cmd = [sys.executable, "-m", "fxtpu.parallel.multihost",
                "--role", role,
                "--process_id", str(pid),
                "--num_processes", str(num_processes),
                "--coordinator", coordinator,
-               "--local_devices", str(local_devices)] + role_args
+               "--local_devices", str(local_devices),
+               "--platform", "cpu" if cpu else platform] + role_args
         procs.append(subprocess.Popen(
             cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -136,9 +166,8 @@ def _role_step(args):
     nbins = args.nbins
     num_samp = args.num_samp
     cfg = CorrelatorConfig(mode="SPECTRUM", nchan=2, ntaps=4, nbins=nbins,
-                           num_samp=num_samp, clamp_num_samp=False,
-                           fused=(True if args.fused else False))
-    eng = FxEngine(cfg, mesh=mesh, fused=cfg.fused)
+                           num_samp=num_samp, clamp_num_samp=False)
+    eng = FxEngine(cfg, mesh=mesh)
 
     rng = np.random.default_rng(20260817)
     block = (rng.normal(size=(2, num_samp)).astype(np.float32)
@@ -157,8 +186,7 @@ def _role_step(args):
     if jax.process_index() == 0 and args.out:
         np.savez(args.out, vis=vis_np, hist=hist_np)
     print(f"[step worker {jax.process_index()}] OK "
-          f"mesh={dict(mesh.shape)} vis={vis_np.shape} "
-          f"fused={getattr(eng.step, 'fused_kernel', False)}", flush=True)
+          f"mesh={dict(mesh.shape)} vis={vis_np.shape}", flush=True)
 
 
 def _role_correlate(args):
@@ -176,8 +204,7 @@ def _role_correlate(args):
         mode=args.mode, nchan=2, nbins=args.nbins, num_samp=args.num_samp,
         clamp_num_samp=False, source="replay", replay_file=args.recording,
         run_time=30, loglevel="WARNING", output_file=args.out,
-        calibrate_on_start=True, startup_duration=0.2,
-        fused=(True if args.fused else False))
+        calibrate_on_start=True, startup_duration=0.2)
     cor = Correlator(config=cfg, mesh=mesh)
     cor.run_state_machine()
     print(f"[correlate worker {jax.process_index()}] OK "
@@ -196,13 +223,14 @@ def main(argv=None):
     p.add_argument("--nbins", type=int, default=256)
     p.add_argument("--num_samp", type=int, default=256 * 64)
     p.add_argument("--mode", default="SPECTRUM")
-    p.add_argument("--fused", action="store_true")
+    p.add_argument("--platform", default="auto",
+                   choices=["auto", "cpu", "gpu"])
     p.add_argument("--recording", default=None)
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
 
     init_runtime(args.process_id, args.num_processes, args.coordinator,
-                 args.local_devices)
+                 args.local_devices, args.platform)
     if args.role == "step":
         _role_step(args)
     else:

@@ -28,21 +28,14 @@ STATE_VERSION = 1
 def save_state(path: str, *, history, delays, blocks_processed: int,
                accumulator=None, accumulated: int = 0, meta: Optional[dict] = None):
     """Atomically snapshot streaming state.  ``history``/``accumulator`` may
-    be Cplx planes or complex arrays; the int8-native fused engine's
-    history dict (raw tail — packed int32 words — + previous-block mean)
-    is stored as two fields with the tail's own integer dtype."""
+    be Cplx planes or complex arrays."""
     payload = {
         "version": STATE_VERSION,
         "delays": np.asarray(delays, dtype=np.float64),
         "blocks_processed": np.int64(blocks_processed),
         "accumulated": np.int64(accumulated),
     }
-    if isinstance(history, dict):
-        payload["history_tail_re"] = np.asarray(history["tail"].re)
-        payload["history_tail_im"] = np.asarray(history["tail"].im)
-        payload["history_mu_prev"] = _as_complex(history["mu_prev"])
-    else:
-        payload["history"] = _as_complex(history)
+    payload["history"] = _as_complex(history)
     if accumulator is not None:
         payload["accumulator"] = _as_complex(accumulator)
     if meta:
@@ -65,17 +58,8 @@ def load_state(path: str) -> dict:
     with np.load(path, allow_pickle=False) as z:
         if int(z["version"]) != STATE_VERSION:
             raise ValueError(f"unknown checkpoint version {z['version']}")
-        if "history_tail_re" in z:
-            history = {
-                "tail": Cplx(np.ascontiguousarray(z["history_tail_re"]),
-                             np.ascontiguousarray(z["history_tail_im"])),
-                "mu_prev": from_complex(
-                    np.ascontiguousarray(z["history_mu_prev"])),
-            }
-        else:
-            history = from_complex(np.ascontiguousarray(z["history"]))
         out = {
-            "history": history,
+            "history": from_complex(np.ascontiguousarray(z["history"])),
             "delays": z["delays"],
             "blocks_processed": int(z["blocks_processed"]),
             "accumulated": int(z["accumulated"]),

@@ -1,7 +1,7 @@
 """Host-side feeder: source → per-channel ring buffers → aligned device blocks.
 
-This is the reference's L4 concurrency runtime rebuilt for the TPU ingest
-path.  The reference runs one daemon *process* per SDR pushing pickled arrays
+This is the reference's L4 concurrency runtime rebuilt for the device
+ingest path.  The reference runs one daemon *process* per SDR pushing pickled arrays
 into ``multiprocessing.Queue``s, synchronized only by a common start epoch
 (``/root/reference/effex/effex.py:420-474,630-664``); misaligned drops would
 desynchronize the channels forever.  Here:

@@ -2,9 +2,8 @@
 
 Replaces the reference's ad-hoc DEBUG wall-clock logging around each hot
 stage (``/root/reference/effex/effex.py:361-373,390-397,405-408,415-417``)
-with accumulating stage timers and science-rate counters — these are the
-BASELINE metrics (samples/s, spectra/s) reported at shutdown and queryable
-live.  ``jax.profiler`` tracing can be wrapped around any region for
+with accumulating stage timers and science-rate counters — samples/s and
+spectra/s, reported at shutdown and queryable live.  ``jax.profiler`` tracing can be wrapped around any region for
 XLA-level analysis (SURVEY.md §5.1).
 """
 

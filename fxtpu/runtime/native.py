@@ -1,7 +1,7 @@
 """ctypes binding for the native C++ ring buffer (native/ringbuffer.cpp).
 
 Same sequence/drop semantics as the Python :class:`~fxtpu.runtime.ringbuffer.
-RingBuffer`; used for high-rate ingest (BASELINE config 4: >=100 MS/s) where
+RingBuffer`; used for high-rate ingest (>=100 MS/s streaming) where
 the Python condition-variable lock dominates.  Falls back cleanly: callers
 use :func:`native_available` / :func:`make_ring` and get the Python
 implementation when the shared library hasn't been built
@@ -72,8 +72,6 @@ def _load():
                 lib.fx_quant_c64_i8.argtypes = [P, P, I64, F32]
                 lib.fx_split_i8.argtypes = [P, P, P, I64]
                 lib.fx_split_c64.argtypes = [P, P, P, I64]
-                lib.fx_quant_pack_c64.argtypes = [P, P, P, I64, I64, F32]
-                lib.fx_pack_i8.argtypes = [P, P, P, I64, I64]
             _lib = lib
             return lib
     return None
@@ -150,55 +148,6 @@ def split_planes_c64(block: np.ndarray):
         return re, im
     return (np.ascontiguousarray(block.real, dtype=np.float32),
             np.ascontiguousarray(block.imag, dtype=np.float32))
-
-
-def pack_planes_i8(block: np.ndarray, nbins: int):
-    """int8 ``[..., rows*nbins, 2]`` interleaved -> per-plane PACKED int32
-    words ``[..., rows, nbins//4]`` (4 bins/word, the int8-NATIVE kernel's
-    H2D form — byte order matches ops/pfb_pallas.pack_int8_planes).
-    Fuses the deinterleave + frame + pack chain into one pass."""
-    lead = block.shape[:-2]
-    rows = block.shape[-2] // nbins
-    n_lead = int(np.prod(lead, dtype=np.int64)) if lead else 1
-    lib = _dataplane()
-    if lib is not None and block.dtype == np.int8 \
-            and block.flags.c_contiguous \
-            and block.shape[-2] == rows * nbins and nbins % 4 == 0:
-        re = np.empty((*lead, rows, nbins // 4), np.int32)
-        im = np.empty((*lead, rows, nbins // 4), np.int32)
-        lib.fx_pack_i8(_ptr(block), _ptr(re), _ptr(im),
-                       n_lead * rows, nbins)
-        return re, im
-    from fxtpu.ops.pfb_pallas import pack_int8_planes
-    framed = block[..., : rows * nbins, :].reshape(*lead, rows, nbins, 2)
-    return (pack_int8_planes(np.ascontiguousarray(framed[..., 0])),
-            pack_int8_planes(np.ascontiguousarray(framed[..., 1])))
-
-
-def quant_pack_planes_c64(block: np.ndarray, nbins: int, quant_step: float):
-    """complex64 ``[..., rows*nbins]`` samples -> per-plane PACKED int32
-    words ``[..., rows, nbins//4]`` quantized at ``quant_step`` — the
-    int8-NATIVE kernel's H2D form straight from complex samples, in ONE
-    native pass (quantize + deinterleave + frame + pack) instead of the
-    quantize_c64 -> pack_planes_i8 two-pass chain.  Used when an
-    int8-ingest engine is handed complex blocks directly (e.g. a replay
-    or synthetic source without a QuantizedSource wrapper)."""
-    rows = block.shape[-1] // nbins
-    lead = block.shape[:-1]
-    lib = _dataplane()
-    if (lib is not None and hasattr(lib, "fx_quant_pack_c64")
-            and block.dtype == np.complex64 and block.flags.c_contiguous
-            and nbins % 4 == 0 and block.shape[-1] == rows * nbins):
-        n_lead = int(np.prod(lead, dtype=np.int64)) if lead else 1
-        re = np.empty((*lead, rows, nbins // 4), np.int32)
-        im = np.empty((*lead, rows, nbins // 4), np.int32)
-        lib.fx_quant_pack_c64(_ptr(block), _ptr(re), _ptr(im),
-                              n_lead * rows, nbins,
-                              1.0 / float(quant_step))
-        return re, im
-    q = quantize_c64(np.ascontiguousarray(block[..., : rows * nbins],
-                                          dtype=np.complex64), quant_step)
-    return pack_planes_i8(q, nbins)
 
 
 def native_available() -> bool:

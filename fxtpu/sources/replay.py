@@ -1,4 +1,4 @@
-"""Recorded-IQ replay source (BASELINE.json config 3).
+"""Recorded-IQ replay source.
 
 Plays back captured IQ (e.g. from RTL-SDRs) as aligned multi-channel blocks.
 Formats:

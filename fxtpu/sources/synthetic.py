@@ -1,10 +1,10 @@
 """Synthetic IQ sources: correlated noise and tones with injectable delay.
 
-Replaces the live USB receivers for development, testing, and benchmarking
-(BASELINE.json config 1).  The generators mirror the reference test-suite's
-synthetic signals (``/root/reference/tests/test_effex.py:31-49``) and add the
-one thing the reference never had: a *correlated* multi-channel source with a
-known, injectable inter-channel delay — the ground truth the calibration and
+Replaces the live USB receivers for development, testing, and benchmarking.
+The generators mirror the reference test-suite's synthetic signals
+(``/root/reference/tests/test_effex.py:31-49``) and add the one thing the
+reference never had: a *correlated* multi-channel source with a known,
+injectable inter-channel delay — the ground truth the calibration and
 TEST-mode fringe oracles check against.
 """
 
@@ -71,8 +71,7 @@ class NoiseSource(Source):
     — so :meth:`split_channels` yields independent single-channel sources
     whose streams are bit-identical to the unsplit source's channel
     slices: the default synthetic run uses the same per-channel zero-copy
-    feeders and fault-injection paths as production replay ingest
-    (r3 VERDICT missing #3).
+    feeders and fault-injection paths as production replay ingest.
     """
 
     def __init__(self, nchan: int = 2, sample_rate: float = 2.4e6,

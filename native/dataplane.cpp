@@ -1,9 +1,9 @@
-// Native host data-plane kernels: quantize / deinterleave / pack.
+// Native host data-plane kernels: quantize / deinterleave.
 //
-// The TPU-host analog of the reference's pinned-memory transport layer
+// The host side of the reference's pinned-memory transport layer
 // (/root/reference/effex/effex.py:105-110 moved bytes with cuSignal
-// pinned buffers + CUDA streams; on a TPU host the equivalent hot loops
-// are the CPU passes between the SDR byte stream and jax.device_put).
+// pinned buffers + CUDA streams; here the equivalent hot loops are the
+// CPU passes between the SDR byte stream and jax.device_put).
 // numpy does each of these as a multi-pass strided ufunc chain — the
 // complex64 -> int8 quantize alone measures ~240 MS/s single-thread,
 // capping the whole >=100 MS/s streaming pipeline.  These single-pass
@@ -55,58 +55,6 @@ void fx_split_c64(const float* src, float* re, float* im, int64_t n) {
     for (int64_t i = 0; i < n; ++i) {
         re[i] = src[2 * i];
         im[i] = src[2 * i + 1];
-    }
-}
-
-// Fused quantize + deinterleave + 4-bins-per-word pack for the
-// int8-NATIVE fused kernel's H2D form: complex64 rows [s, nbins] ->
-// int32 words [s, nbins/4] per plane, word L byte k = bin k*(nbins/4)+L
-// (little-endian; matches ops/pfb_pallas.pack_int8_planes and the
-// kernel's _unpack_i8 shift order).  One pass over the input instead of
-// numpy's quantize + 2x ascontiguousarray + moveaxis-transpose chain.
-void fx_quant_pack_c64(const float* src, int32_t* re_words,
-                       int32_t* im_words, int64_t s, int64_t nbins,
-                       float inv_step) {
-    const int64_t nb4 = nbins / 4;
-    for (int64_t row = 0; row < s; ++row) {
-        const float* r = src + 2 * row * nbins;
-        int32_t* wr = re_words + row * nb4;
-        int32_t* wi = im_words + row * nb4;
-        for (int64_t L = 0; L < nb4; ++L) {
-            uint32_t re_w = 0, im_w = 0;
-            for (int k = 0; k < 4; ++k) {
-                const int64_t bin = k * nb4 + L;
-                re_w |= (uint32_t)(uint8_t)quant1(r[2 * bin], inv_step)
-                        << (8 * k);
-                im_w |= (uint32_t)(uint8_t)quant1(r[2 * bin + 1], inv_step)
-                        << (8 * k);
-            }
-            wr[L] = (int32_t)re_w;
-            wi[L] = (int32_t)im_w;
-        }
-    }
-}
-
-// Same pack for ALREADY-quantized int8 planes (the ring/aligner carry
-// int8 [.., 2]; prepare_block packs after the aligner gather):
-// int8 rows [s, nbins, 2] interleaved -> int32 words per plane.
-void fx_pack_i8(const int8_t* src, int32_t* re_words, int32_t* im_words,
-                int64_t s, int64_t nbins) {
-    const int64_t nb4 = nbins / 4;
-    for (int64_t row = 0; row < s; ++row) {
-        const int8_t* r = src + 2 * row * nbins;
-        int32_t* wr = re_words + row * nb4;
-        int32_t* wi = im_words + row * nb4;
-        for (int64_t L = 0; L < nb4; ++L) {
-            uint32_t re_w = 0, im_w = 0;
-            for (int k = 0; k < 4; ++k) {
-                const int64_t bin = k * nb4 + L;
-                re_w |= (uint32_t)(uint8_t)r[2 * bin] << (8 * k);
-                im_w |= (uint32_t)(uint8_t)r[2 * bin + 1] << (8 * k);
-            }
-            wr[L] = (int32_t)re_w;
-            wi[L] = (int32_t)im_w;
-        }
     }
 }
 

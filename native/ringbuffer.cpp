@@ -2,10 +2,10 @@
 //
 // C++ twin of fxtpu/runtime/ringbuffer.py (same slot/seq/drop semantics),
 // for ingest rates where the Python condition-variable lock becomes the
-// bottleneck (BASELINE config 4: >=100 MS/s sustained streaming).  The
+// bottleneck (>=100 MS/s sustained streaming).  The
 // reference consumed its native buffering through cuSignal pinned memory +
 // multiprocessing queues (/root/reference/effex/effex.py:105-110); this is
-// the in-tree TPU-host equivalent.
+// the in-tree host equivalent.
 //
 // Single producer / single consumer, lock-free indices (acquire/release
 // atomics), preallocated slots, memcpy in, zero-copy view out

@@ -59,7 +59,7 @@ def test_local_sample_span_single_process_covers_all(mesh):
 def test_int8_mesh_ingest_matches_f32(rng, mesh):
     """int8 planes ship through the mesh path (4x fewer H2D bytes) and the
     sharded step dequantizes IN-GRAPH — results must match the f32 mesh
-    path to quantization precision (VERDICT r1 weak #5)."""
+    path to quantization precision."""
     import jax.numpy as jnp
 
     from fxtpu.sources.base import QuantizedSource

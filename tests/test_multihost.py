@@ -2,9 +2,9 @@
 
 These launch REAL separate Python processes that rendezvous through
 ``jax.distributed.initialize`` (gloo collectives over TCP — the same
-multi-controller code path a TPU pod runs over DCN), each owning 4 virtual
-CPU devices of an 8-device global mesh, and assert the distributed results
-equal the single-process runs bit-for-bit-close.
+multi-controller code path a multi-host GPU run takes over NCCL), each
+owning 4 virtual CPU devices of an 8-device global mesh, and assert the
+distributed results equal the single-process runs bit-for-bit-close.
 
 Reference analog being generalized: the single-host queue transport at
 ``/root/reference/effex/effex.py:105-110``.
@@ -26,7 +26,7 @@ NBINS = 256
 NUM_SAMP = NBINS * 64
 
 
-def _single_process_step(fused):
+def _single_process_step():
     """The same deterministic step the `step` role runs, on this process's
     8 virtual devices (conftest)."""
     from fxtpu.config import CorrelatorConfig
@@ -36,9 +36,8 @@ def _single_process_step(fused):
 
     mesh = make_correlator_mesh(4, 2)
     cfg = CorrelatorConfig(mode="SPECTRUM", nchan=2, ntaps=4, nbins=NBINS,
-                           num_samp=NUM_SAMP, clamp_num_samp=False,
-                           fused=fused)
-    eng = FxEngine(cfg, mesh=mesh, fused=fused)
+                           num_samp=NUM_SAMP, clamp_num_samp=False)
+    eng = FxEngine(cfg, mesh=mesh)
     rng = np.random.default_rng(20260817)
     block = (rng.normal(size=(2, NUM_SAMP)).astype(np.float32)
              + 1j * rng.normal(size=(2, NUM_SAMP)).astype(np.float32)
@@ -51,21 +50,17 @@ def _single_process_step(fused):
                       np.asarray(jax.device_get(hist.im))]))
 
 
-@pytest.mark.parametrize("fused", [False, True],
-                         ids=["xla_path", "fused_kernel"])
-def test_two_process_step_matches_single_process(tmp_path, fused):
+def test_two_process_step_matches_single_process(tmp_path):
     """2-process sharded FX step (make_array_from_process_local_data
     ingest, each process materializing only its local sample span) must
     produce the single-process mesh result."""
     out = str(tmp_path / "mh_step.npz")
     args = ["--out", out, "--nbins", str(NBINS),
             "--num_samp", str(NUM_SAMP)]
-    if fused:
-        args.append("--fused")
     results = launch(2, "step", args)
     assert all(r.returncode == 0 for r in results)
     got = np.load(out)
-    want_vis, want_hist = _single_process_step(fused)
+    want_vis, want_hist = _single_process_step()
     np.testing.assert_allclose(got["vis"], want_vis, rtol=2e-5, atol=2e-4)
     np.testing.assert_allclose(got["hist"], want_hist, rtol=1e-6, atol=1e-6)
 
@@ -89,7 +84,7 @@ def test_two_process_correlator_product_matches(tmp_path):
         mode="SPECTRUM", nchan=2, nbins=NBINS, num_samp=NUM_SAMP,
         clamp_num_samp=False, source="replay", replay_file=rec,
         run_time=30, loglevel="WARNING", output_file=ref_csv,
-        startup_duration=0.2, fused=False)
+        startup_duration=0.2)
     cor = Correlator(config=cfg, mesh=make_correlator_mesh(4, 2))
     cor.run_state_machine()
     ref_delays = cor.calibrated_delays.copy()
@@ -162,7 +157,8 @@ def test_span_sources_match_full_reads():
 
 def test_cli_multiprocess_run(tmp_path):
     """The CLI itself drives a 2-process distributed run (the same
-    command a real pod runs per host): process 0 writes a valid CSV."""
+    command a multi-host deployment runs per host): process 0 writes a
+    valid CSV."""
     import subprocess
     import sys
 

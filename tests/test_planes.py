@@ -1,8 +1,7 @@
-"""Dual-plane (TPU-executable) path: the MXU matmul FFT against numpy, and
-the planes implementation against the complex reference implementation for
-every stage and for the full fused step.  This is the representation that
-actually runs on the TPU backend (no complex dtypes there), so parity here
-is what makes the CPU oracle suite meaningful for TPU execution."""
+"""Dual-plane path: the planes FFT against numpy, and the planes
+implementation against the complex implementation for every stage and for
+the full step.  This is the representation the production step runs in, so
+parity here is what makes the CPU oracle suite meaningful for the GPU."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +10,7 @@ import pytest
 from fxtpu.config import CorrelatorConfig
 from fxtpu.fx import FxEngine
 from fxtpu.ops import cfft
-from fxtpu.ops.cplx import Cplx, from_complex, to_complex
+from fxtpu.ops.cplx import from_complex, to_complex
 from fxtpu.ops import planes as pl_ops
 from fxtpu.ops.pfb import spectrometer_poly
 from fxtpu.ops.window import pfb_window
@@ -20,7 +19,7 @@ from fxtpu.sources.synthetic import complex_noise, fractional_delay
 
 
 # ---------------------------------------------------------------------------
-# matmul FFT vs numpy
+# planes FFT vs numpy
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("n", [8, 128, 256, 4096, 2**16,
                                4099,            # prime -> Bluestein
@@ -44,25 +43,6 @@ def test_cfft_batched(rng):
          ).astype(np.complex64)
     got = to_complex(cfft.fft(from_complex(x)))
     np.testing.assert_allclose(got, np.fft.fft(x, axis=-1), atol=1e-4)
-
-
-@pytest.mark.parametrize("n", [128, 512, 4096, 2**15])
-def test_cfft_permuted_matches_fft(rng, n):
-    """fft_permuted(x)[pos] == fft(x)[ct_perm(n)[pos]], and ct_perm is a
-    true permutation of range(n)."""
-    perm = cfft.ct_perm(n)
-    assert sorted(perm.tolist()) == list(range(n))
-    x = (rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))
-         ).astype(np.complex64)
-    want = to_complex(cfft.fft(from_complex(x)))
-    got = to_complex(cfft.fft_permuted(from_complex(x)))
-    np.testing.assert_allclose(got, want[..., perm],
-                               atol=3e-6 * np.abs(want).max())
-
-
-def test_cfft_permuted_rejects_bluestein():
-    with pytest.raises(ValueError):
-        cfft.fft_permuted(from_complex(np.ones(4099, np.complex64)))
 
 
 def test_cfft_roundtrip(rng):
@@ -117,7 +97,7 @@ def test_delay_planes_odd_length_bluestein(rng):
 
 
 # ---------------------------------------------------------------------------
-# fused step parity: planes vs complex, all modes
+# step parity: planes vs complex, all modes
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("mode", ["SPECTRUM", "CONTINUUM"])
 @pytest.mark.parametrize("nchan", [2, 4])
@@ -141,30 +121,6 @@ def test_fx_step_planes_matches_complex(mode, nchan):
                                atol=2e-4 * scale)
     np.testing.assert_allclose(to_complex(hist_p), np.asarray(hist_c),
                                atol=1e-5)
-
-
-@pytest.mark.parametrize("mode", ["SPECTRUM", "CONTINUUM"])
-def test_permuted_pipeline_matches_default(monkeypatch, rng, mode):
-    """FXTPU_PERMUTED_FFT=1 (bin-permuted F-stage, final tiny gather) gives
-    the same visibilities and history as the default pipeline."""
-    cfg = CorrelatorConfig(mode=mode, num_samp=2**14, nbins=512,
-                           clamp_num_samp=False)
-    block = (rng.normal(size=(2, cfg.num_samp))
-             + 1j * rng.normal(size=(2, cfg.num_samp))).astype(np.complex64)
-    delays = jnp.asarray([0.0, 3.7e-7], jnp.float32)
-
-    eng = FxEngine(cfg)
-    vis, hist = eng.step(eng.prepare_block(block), delays,
-                         eng.fresh_history())
-    monkeypatch.setenv("FXTPU_PERMUTED_FFT", "1")
-    eng_p = FxEngine(cfg)
-    vis_p, hist_p = eng_p.step(eng_p.prepare_block(block), delays,
-                               eng_p.fresh_history())
-    scale = np.abs(to_complex(vis)).max()
-    np.testing.assert_allclose(to_complex(vis_p), to_complex(vis),
-                               atol=1e-5 * scale)
-    np.testing.assert_allclose(to_complex(hist_p), to_complex(hist),
-                               atol=1e-6)
 
 
 def test_packed_delays_carrier_phase_precision(rng):
@@ -250,173 +206,6 @@ def test_multi_step_matches_sequential():
                                atol=1e-7)
 
 
-# ---------------------------------------------------------------------------
-# fused Pallas F-stage (interpret mode on CPU)
-# ---------------------------------------------------------------------------
-class TestFusedPallas:
-    def _mk(self, nch=2, ns=2**13, nbins=256, ntaps=4, seed=0):
-        from fxtpu.ops.window import pfb_window as _w
-        w2d = jnp.asarray(_w(ntaps, nbins).reshape(ntaps, nbins), jnp.float32)
-        rng = np.random.default_rng(seed)
-        x = (rng.normal(size=(nch, ns)) + 1j * rng.normal(size=(nch, ns))
-             ).astype(np.complex64)
-        return w2d, x
-
-    def test_matches_planes_path_two_blocks(self):
-        from fxtpu.ops.pfb_pallas import spectrometer_pallas, supported
-        nbins, ntaps = 256, 4
-        assert supported(nbins, ntaps, 2**13 // nbins)
-        w2d, x = self._mk()
-        # a DIFFERENT second block: with y == x the carried-history
-        # assertion couldn't distinguish real history from the current
-        # block's own tail rows
-        _, y = self._mk(seed=1)
-        z0 = pl_ops.zero_history_planes((2,), nbins, ntaps)
-        g1, h1 = spectrometer_pallas(from_complex(x), w2d, nbins, z0)
-        w1, hw1 = pl_ops.spectrometer_planes(
-            pl_ops.dc_remove_planes(from_complex(x)), w2d, nbins)
-        scale = np.abs(to_complex(w1)).max()
-        np.testing.assert_allclose(to_complex(g1), to_complex(w1),
-                                   atol=3e-6 * scale)
-        np.testing.assert_allclose(to_complex(h1), to_complex(hw1),
-                                   atol=1e-6)
-        g2, _ = spectrometer_pallas(from_complex(y), w2d, nbins, h1)
-        w2_, _ = pl_ops.spectrometer_planes(
-            pl_ops.dc_remove_planes(from_complex(y)), w2d, nbins,
-            history=hw1)
-        np.testing.assert_allclose(to_complex(g2), to_complex(w2_),
-                                   atol=3e-6 * scale)
-
-    def test_wideband_taps32(self):
-        from fxtpu.ops.pfb_pallas import spectrometer_pallas, supported
-        nbins, ntaps, ns = 512, 32, 512 * 64
-        assert supported(nbins, ntaps, ns // nbins)
-        w2d, x = self._mk(ns=ns, nbins=nbins, ntaps=ntaps)
-        z0 = pl_ops.zero_history_planes((2,), nbins, ntaps)
-        got, _ = spectrometer_pallas(from_complex(x), w2d, nbins, z0)
-        want, _ = pl_ops.spectrometer_planes(
-            pl_ops.dc_remove_planes(from_complex(x)), w2d, nbins)
-        scale = np.abs(to_complex(want)).max()
-        np.testing.assert_allclose(to_complex(got), to_complex(want),
-                                   atol=5e-6 * scale)
-
-    def test_fused_engine_step_matches_unfused(self):
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               clamp_num_samp=False)
-        _, x = self._mk()
-        delays = jnp.asarray([0.0, 3e-7], jnp.float32)
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        vu, hu = eng_u.step(eng_u.prepare_block(x), delays,
-                            eng_u.fresh_history())
-        vf, hf = eng_f.step(eng_f.prepare_block(x), delays,
-                            eng_f.fresh_history())
-        scale = np.abs(to_complex(vu)).max()
-        # the fused kernel's stage matmuls are genuine 3-pass bf16 splits
-        # (Mosaic has no HIGH); on CPU the unfused path is exact f32, so
-        # the delta here is the kernel's true split error (~5e-6 measured)
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=2e-5 * scale)
-        np.testing.assert_allclose(to_complex(hf), to_complex(hu),
-                                   atol=1e-6)
-
-    def test_fused_multi_step_matches_unfused(self):
-        """The scan-free K-block fused kernel (grid-iterated blocks,
-        history carried in VMEM scratch) == the unfused scanned multi_step,
-        including chained history and per-block delays."""
-        import jax
-        from jax import tree
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               clamp_num_samp=False)
-        rng = np.random.default_rng(5)
-        k = 3
-        blocks = [(rng.normal(size=(2, cfg.num_samp))
-                   + 1j * rng.normal(size=(2, cfg.num_samp))
-                   ).astype(np.complex64) for _ in range(k)]
-        delays = jnp.asarray(
-            np.linspace(0, 1e-6, k)[:, None] * np.array([0.0, 1.0]),
-            jnp.float32)
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        iq_u = tree.map(lambda *xs: jnp.stack(xs),
-                        *[eng_u.prepare_block(b) for b in blocks])
-        vu, hu = eng_u.multi_step(iq_u, delays, eng_u.fresh_history())
-        iq_f = eng_f.prepare_batch(blocks)   # merged [nch, K, S, nbins]
-        vf, hf = eng_f.multi_step(iq_f, delays, eng_f.fresh_history())
-        scale = np.abs(to_complex(vu)).max()
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=2e-5 * scale)
-        np.testing.assert_allclose(to_complex(hf), to_complex(hu),
-                                   atol=1e-6)
-
-    def test_fused_nchan3_all_baselines(self):
-        """Odd channel counts + multiple baselines through the fused
-        kernel's in-kernel X loop."""
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               nchan=3, clamp_num_samp=False)
-        rng = np.random.default_rng(11)
-        x = (rng.normal(size=(3, cfg.num_samp))
-             + 1j * rng.normal(size=(3, cfg.num_samp))).astype(np.complex64)
-        # sub-cycle delays: at multi-cycle fc*d the two paths round the f32
-        # phase argument differently (the fused difference-phase is the
-        # more accurate one); parity here checks the MATH, not trig ulps
-        delays = jnp.asarray([0.0, 2e-11, -1e-11], jnp.float32)
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        vu, _ = eng_u.step(eng_u.prepare_block(x), delays,
-                           eng_u.fresh_history())
-        vf, _ = eng_f.step(eng_f.prepare_block(x), delays,
-                           eng_f.fresh_history())
-        assert vu.shape == vf.shape == (3, 256)  # 3 baselines, no autos
-        scale = np.abs(to_complex(vu)).max()
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=2e-5 * scale)
-
-    def test_fused_correlator_test_mode_fringe(self, tmp_path):
-        """TEST-mode sweep end-to-end through the fused engine (config
-        passthrough): the rotation-after-integration formulation must
-        reproduce the fringe pattern the physics oracle expects."""
-        from fxtpu.correlator import Correlator
-        from fxtpu.products import load_products
-        cfg = CorrelatorConfig(
-            mode="TEST", num_samp=2**13, nbins=256, run_time=1,
-            clamp_num_samp=False, loglevel="ERROR", fused=True,
-            synthetic_snr=100, test_sweep_step=1e-7, test_offset_steps=4,
-            output_file=str(tmp_path / "vis.csv"))
-        cor = Correlator(config=cfg)
-        assert cor.engine.fused_active
-        cor.run_state_machine()
-        _, data = load_products(cor.output_file)
-        assert data.ndim == 1 and len(data) >= 6
-        # cal subtracted offset = 4 sweep steps; the sweep re-adds one step
-        # per block, so the fringe peak (residual delay ~ 0) lands at block
-        # index offset_steps - 1 = 3
-        amps = np.abs(data)
-        assert abs(int(np.argmax(amps)) - 3) <= 1
-
-    def test_engine_inherits_config_fused_knob(self):
-        """FxEngine(cfg) honors cfg.fused (it used to silently default to
-        'auto'); an explicit kwarg still overrides the config."""
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               ntaps=4, clamp_num_samp=False, fused=True)
-        assert FxEngine(cfg).fused_active
-        assert not FxEngine(cfg, fused=False).fused_active
-        cfg_off = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13,
-                                   nbins=256, ntaps=4,
-                                   clamp_num_samp=False, fused=False)
-        assert not FxEngine(cfg_off).fused_active
-        assert FxEngine(cfg_off, fused=True).fused_active
-
-    def test_unsupported_shapes_fall_back(self):
-        from fxtpu.ops.pfb_pallas import supported
-        assert not supported(256, 1, 32)      # ntaps < 2
-        assert not supported(2**15, 4, 32)    # nbins too large to 2-factor
-        # engine builds fine anyway (falls back to XLA path)
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**15, nbins=2**13,
-                               ntaps=4, clamp_num_samp=False)
-        FxEngine(cfg, fused=True)
-
-
 def test_calibrator_nchan4_distinct_delays(rng):
     """Per-channel delays against channel 0 are recovered independently."""
     cfg = CorrelatorConfig(num_samp=2**14, nbins=256, nchan=4,
@@ -432,978 +221,3 @@ def test_calibrator_nchan4_distinct_delays(rng):
     # estimate_delay(ref=ch0, x=chc) returns how much chc lags ch0: +d.
     for c in range(4):
         assert abs(got_samps[c] - true_samps[c]) < 0.5, (c, got_samps)
-
-
-class TestSvdFir:
-    """Deep-tap SVD-FIR (banded MXU matmul form, ops/pfb_pallas.py): the
-    rank factorization must reproduce the direct tap loop through the
-    whole fused step."""
-
-    def test_factors_rank_and_accuracy(self):
-        from fxtpu.ops.pfb_pallas import _svd_fir_factors
-        from fxtpu.ops.window import pfb_window
-        w = pfb_window(32, 512, "hamming").reshape(32, 512)
-        w_key = tuple(w.astype(np.float64).ravel())
-        fac = _svd_fir_factors(w_key, 512)
-        assert fac is not None
-        u, v, ratios = fac
-        assert u.shape[1] <= 8   # smooth windowed-sinc collapses (rank 6
-        #                          at the 1e-5 default, r4)
-        assert ratios[0] == 1.0 and all(
-            a >= b for a, b in zip(ratios, ratios[1:]))
-        err = np.abs(u @ v - w).max() / np.abs(w).max()
-        assert err < 1.2e-5      # under the pipeline's 3.1e-5 floor
-        # the strict 1e-7 tier reconstructs two decades tighter
-        u7, v7, _ = _svd_fir_factors(w_key, 512, tol=1e-7)
-        assert u7.shape[1] > u.shape[1]
-        assert np.abs(u7 @ v7 - w).max() / np.abs(w).max() < 1e-6
-        # shallow-tap windows stay on the exact direct loop
-        w4 = pfb_window(4, 512, "hamming").reshape(4, 512)
-        assert _svd_fir_factors(tuple(w4.astype(np.float64).ravel()),
-                                512) is None
-
-    def test_deep_tap_fused_step_matches_unfused(self):
-        """32-tap fused step (SVD-FIR active) == unfused planes path."""
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               ntaps=32, clamp_num_samp=False)
-        rng = np.random.default_rng(9)
-        x = (rng.normal(size=(2, cfg.num_samp))
-             + 1j * rng.normal(size=(2, cfg.num_samp))).astype(np.complex64)
-        delays = jnp.asarray([0.0, 4e-7], jnp.float32)
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        from fxtpu.ops.pfb_pallas import _svd_fir_factors
-        assert _svd_fir_factors(
-            tuple(eng_f.window2d.astype(np.float64).ravel()),
-            cfg.nbins) is not None  # the SVD path is the one under test
-        vu, hu = eng_u.step(eng_u.prepare_block(x), delays,
-                            eng_u.fresh_history())
-        vf, hf = eng_f.step(eng_f.prepare_block(x), delays,
-                            eng_f.fresh_history())
-        scale = np.abs(to_complex(vu)).max()
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=3e-5 * scale)
-        np.testing.assert_allclose(to_complex(hf), to_complex(hu),
-                                   atol=1e-6)
-
-    def test_deep_tap_streaming_history_chain(self):
-        """Two chained 32-tap fused blocks == two chained unfused blocks
-        (the SVD-FIR path preserves the streaming history contract)."""
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               ntaps=32, clamp_num_samp=False)
-        rng = np.random.default_rng(10)
-        blocks = [(rng.normal(size=(2, cfg.num_samp))
-                   + 1j * rng.normal(size=(2, cfg.num_samp))
-                   ).astype(np.complex64) for _ in range(2)]
-        delays = jnp.zeros((2,), jnp.float32)
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        hu, hf = eng_u.fresh_history(), eng_f.fresh_history()
-        for b in blocks:
-            vu, hu = eng_u.step(eng_u.prepare_block(b), delays, hu)
-            vf, hf = eng_f.step(eng_f.prepare_block(b), delays, hf)
-        scale = np.abs(to_complex(vu)).max()
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=3e-5 * scale)
-
-
-class TestInt8NativeFused:
-    """int8-NATIVE fused kernel (deep taps): int8 slab + raw-tail history
-    + post-hoc mu_prev correction must equal the dequantized-f32 unfused
-    streaming path exactly (the algebra is linear — see
-    ops.pfb_pallas.fx_pallas_raw_multi)."""
-
-    STEP = 1.0 / 32
-    NS, NBINS, NTAPS = 2**13, 256, 32
-
-    def _engines(self):
-        cfg_q = CorrelatorConfig(
-            mode="SPECTRUM", num_samp=self.NS, nbins=self.NBINS,
-            ntaps=self.NTAPS, clamp_num_samp=False, ingest_dtype="int8",
-            quant_step=self.STEP, fused=True)
-        cfg_f = CorrelatorConfig(
-            mode="SPECTRUM", num_samp=self.NS, nbins=self.NBINS,
-            ntaps=self.NTAPS, clamp_num_samp=False)
-        return FxEngine(cfg_q, fused=True), FxEngine(cfg_f, fused=False)
-
-    def _blocks(self, n=3, seed=5):
-        from fxtpu.sources.base import QuantizedSource
-        from fxtpu.sources.synthetic import NoiseSource
-        src = QuantizedSource(NoiseSource(nchan=2, seed=seed),
-                              quant_step=self.STEP)
-        blocks = [src.read_block(self.NS) for _ in range(n)]
-        deq = [((b[..., 0].astype(np.float32)
-                 + 1j * b[..., 1].astype(np.float32)) * self.STEP
-                ).astype(np.complex64) for b in blocks]
-        return blocks, deq
-
-    def test_streaming_chain_matches_dequantized_unfused(self):
-        eng_q, eng_f = self._engines()
-        assert eng_q.int8_native
-        blocks, deq = self._blocks()
-        d = jnp.asarray([0.0, 3e-7], jnp.float32)
-        hq, hf = eng_q.fresh_history(), eng_f.fresh_history()
-        # raw tail travels packed: int32 words, 4 bins each
-        assert isinstance(hq, dict) and hq["tail"].re.dtype == jnp.int32
-        assert hq["tail"].re.shape[-1] == self.NBINS // 4
-        # EVERY block must match the oracle — the fresh-history first
-        # dispatch (all-zero packed tail, mu_prev = 0) and the carried-
-        # tail steady state are different kernel paths; checking only the
-        # last block would let a first-block-only bug through
-        for i, (b, bf) in enumerate(zip(blocks, deq)):
-            vq, hq = eng_q.step(eng_q.prepare_block(b), d, hq)
-            vf, hf = eng_f.step(eng_f.prepare_block(bf), d, hf)
-            cq, cf = to_complex(vq), to_complex(vf)
-            scale = np.abs(cf).max()
-            np.testing.assert_allclose(cq / scale, cf / scale, atol=3e-5,
-                                       err_msg=f"block {i}")
-
-    def test_multi_step_matches_sequential(self):
-        eng_q, _ = self._engines()
-        blocks, _ = self._blocks()
-        import jax
-        iq = eng_q.prepare_batch(blocks)   # merged packed [nch, K, S, L/4]
-        dk = jnp.zeros((3, 2), jnp.float32)
-        vm, hm = eng_q.multi_step(iq, dk, eng_q.fresh_history())
-        hs = eng_q.fresh_history()
-        d1 = jnp.zeros((2,), jnp.float32)
-        for i, b in enumerate(blocks):
-            v, hs = eng_q.step(eng_q.prepare_block(b), d1, hs)
-            got = to_complex(jax.tree.map(lambda a: a[i], vm))
-            want = to_complex(v)
-            scale = np.abs(want).max()
-            np.testing.assert_allclose(got / scale, want / scale,
-                                       atol=1e-5)
-        # raw-tail history round trip is bit-exact (int8)
-        np.testing.assert_array_equal(np.asarray(hm["tail"].re),
-                                      np.asarray(hs["tail"].re))
-        np.testing.assert_allclose(np.asarray(hm["mu_prev"].re),
-                                   np.asarray(hs["mu_prev"].re), atol=1e-7)
-
-    def test_snapshot_roundtrip_dict_history(self, tmp_path):
-        from fxtpu.runtime import checkpoint
-        eng_q, _ = self._engines()
-        blocks, _ = self._blocks(n=1)
-        d = jnp.zeros((2,), jnp.float32)
-        _, hist = eng_q.step(eng_q.prepare_block(blocks[0]), d,
-                             eng_q.fresh_history())
-        p = str(tmp_path / "state.npz")
-        checkpoint.save_state(p, history=hist, delays=np.zeros(2),
-                              blocks_processed=1)
-        state = checkpoint.load_state(p)
-        got = state["history"]
-        assert got["tail"].re.dtype == np.int32   # packed 4-bin words
-        np.testing.assert_array_equal(np.asarray(got["tail"].re),
-                                      np.asarray(hist["tail"].re))
-        np.testing.assert_allclose(np.asarray(got["mu_prev"].re),
-                                   np.asarray(hist["mu_prev"].re),
-                                   atol=1e-7)
-
-
-class TestInt8NativeDirect(TestInt8NativeFused):
-    """int8-native with the DIRECT tap loop (shallow taps): same raw-tail
-    contract, dequant scale folded into the window."""
-
-    NS, NBINS, NTAPS = 2**13, 256, 4
-
-
-class TestInt8NativeDeepMultiTile(TestInt8NativeFused):
-    """Deep-tap SVD conv with BOTH multiple tiles per block and multiple
-    blocks per dispatch (s_rows = 256, int8 tile = 4*pad = 128 ->
-    n_tiles = 2): exercises the merged-rows layout's full copy grid —
-    in-block tile halos AND cross-block halos all read from one
-    [nch, K*S, lanes] stream (ops/pfb_pallas._fx_kernel tile_copies)."""
-
-    NS, NBINS, NTAPS = 2**16, 256, 32
-
-
-def test_pick_tile_defaults():
-    """The tile heuristic pins the r4 TPU sweep: flagship stays at 16
-    (16/32/64 measured 23.43/22.62/19.70 GS/s — VMEM pressure beats
-    descriptor count), f32 deep taps take 2*pad (1.5x halo read
-    amplification), int8 deep taps take 4*pad (1.25x; slab bytes /4
-    make it affordable — measured 13.19 -> 13.94 GS/s at
-    wideband_int8).  FXTPU_FUSED_TILE still overrides."""
-    from fxtpu.ops.pfb_pallas import _halo_pad, _pick_tile
-    assert _pick_tile(512, 4) == 16                       # flagship
-    pad = _halo_pad(32)                                   # 32
-    assert _pick_tile(256, 32) == 2 * pad                 # wideband f32
-    assert _pick_tile(256, 32, int8=True) == 4 * pad      # wideband int8
-    # capped by s_rows and the divisibility constraint
-    assert _pick_tile(128, 32, int8=True) == 128
-    import os
-    os.environ["FXTPU_FUSED_TILE"] = "32"
-    try:
-        assert _pick_tile(512, 4) == 32
-    finally:
-        del os.environ["FXTPU_FUSED_TILE"]
-
-
-@pytest.mark.parametrize("ntaps", [4, 32])
-def test_fused_default_precision_loose_parity(monkeypatch, ntaps):
-    """FXTPU_FFT_PRECISION=default switches the fused kernel to 1-pass
-    bf16 dots (SVD conv + both FFT stages) — the same speed/accuracy knob
-    the XLA path has (ops/cfft.py: 1-pass measured 4.1e-3 rel err).  The
-    integrated visibility must match the HIGH-precision unfused oracle to
-    bf16-rounding accuracy, and the knob must not touch the carried
-    history contract."""
-    from jax import tree
-
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FFT_PRECISION", "default")
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               ntaps=ntaps, clamp_num_samp=False)
-        rng = np.random.default_rng(3)
-        k = 2
-        blocks = [(rng.normal(size=(2, cfg.num_samp))
-                   + 1j * rng.normal(size=(2, cfg.num_samp))
-                   ).astype(np.complex64) for _ in range(k)]
-        delays = jnp.zeros((k, 2), jnp.float32)
-        eng_f = FxEngine(cfg, fused=True)
-        vf, _ = eng_f.multi_step(eng_f.prepare_batch(blocks),
-                                 delays, eng_f.fresh_history())
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-    # HIGH-precision oracle with the knob unset
-    monkeypatch.delenv("FXTPU_FFT_PRECISION", raising=False)
-    eng_u = FxEngine(cfg, fused=False)
-    iq_u = tree.map(lambda *xs: jnp.stack(xs),
-                    *[eng_u.prepare_block(b) for b in blocks])
-    vu, _ = eng_u.multi_step(iq_u, delays, eng_u.fresh_history())
-    scale = np.abs(to_complex(vu)).max()
-    diff = np.abs(to_complex(vf) - to_complex(vu)).max() / scale
-    assert diff < 2e-2, diff           # bf16 rounding, not a wrong path
-    assert diff > 1e-6, diff           # and the knob actually engaged
-
-
-def test_svd_tol_env_knob_rank_and_parity(monkeypatch):
-    """FXTPU_SVD_TOL tiers the deep-tap conv rank (cost is linear in
-    rank): the 1e-5 DEFAULT (r4 TPU A/B: wideband f32 9.29 -> 11.10
-    GS/s) must retain FEWER singular vectors than the strict 1e-7 tier
-    on the wideband window, and the fused step at the default must still
-    match the HIGH-precision unfused oracle within the pipeline's
-    measured 3.1e-5 floor — the window perturbation at 1e-5 sits below
-    it."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-    from fxtpu.ops.pfb_pallas import _svd_fir_factors
-    from fxtpu.ops.window import pfb_window
-
-    w = pfb_window(32, 256, "hamming").reshape(32, 256)
-    w_key = tuple(w.astype(np.float64).ravel())
-    r_strict = _svd_fir_factors(w_key, 256, tol=1e-7)[0].shape[1]
-    r_default = _svd_fir_factors(w_key, 256)[0].shape[1]
-    assert r_default < r_strict  # the default tier buys real conv work
-
-    monkeypatch.setenv("FXTPU_SVD_TOL", "1e-5")
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               ntaps=32, clamp_num_samp=False)
-        rng = np.random.default_rng(11)
-        x = (rng.normal(size=(2, cfg.num_samp))
-             + 1j * rng.normal(size=(2, cfg.num_samp))).astype(np.complex64)
-        delays = jnp.asarray([0.0, 4e-7], jnp.float32)
-        eng_f = FxEngine(cfg, fused=True)
-        vf, _ = eng_f.step(eng_f.prepare_block(x), delays,
-                           eng_f.fresh_history())
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-    monkeypatch.delenv("FXTPU_SVD_TOL", raising=False)
-    eng_u = FxEngine(cfg, fused=False)
-    vu, _ = eng_u.step(eng_u.prepare_block(x), delays,
-                       eng_u.fresh_history())
-    scale = np.abs(to_complex(vu)).max()
-    np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                               atol=5e-5 * scale)
-
-
-def test_svd_tier_env_knob_lead_and_parity(monkeypatch):
-    """FXTPU_SVD_TIER (default ON) drops the deep-tap conv's TAIL ranks
-    (sigma_k/sigma_1 < 2e-3) to single bf16 dots — conv row-passes
-    144 -> 112 at the production wideband window — while the dropped
-    correction terms stay under the 3.1e-5 pipeline floor.  Asserts the
-    static tier split, that the knob BINDS through the step caches
-    (tier on/off outputs differ, i.e. no stale executable), and that
-    both match the HIGH unfused oracle within the floor."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-    from fxtpu.ops.pfb_pallas import (_SVD_TIER_THRESH, _svd_fir_factors)
-    from fxtpu.ops.window import pfb_window
-
-    w = pfb_window(32, 256, "hamming").reshape(32, 256)
-    w_key = tuple(w.astype(np.float64).ravel())
-    _, _, ratios = _svd_fir_factors(w_key, 256)
-    lead = sum(1 for s in ratios if s >= _SVD_TIER_THRESH)
-    assert 1 <= lead < len(ratios)  # the tier buys real tail passes
-
-    cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                           ntaps=32, clamp_num_samp=False)
-    rng = np.random.default_rng(13)
-    x = (rng.normal(size=(2, cfg.num_samp))
-         + 1j * rng.normal(size=(2, cfg.num_samp))).astype(np.complex64)
-    delays = jnp.asarray([0.0, 4e-7], jnp.float32)
-
-    def run_fused():
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-        eng = FxEngine(cfg, fused=True)
-        v, _ = eng.step(eng.prepare_block(x), delays, eng.fresh_history())
-        return to_complex(v)
-
-    try:
-        assert pfb_pallas._trace_env()[9] is True   # tier defaults ON
-        v_tier = run_fused()
-        monkeypatch.setenv("FXTPU_SVD_TIER", "0")
-        assert pfb_pallas._trace_env()[9] is False
-        v_full = run_fused()
-    finally:
-        monkeypatch.delenv("FXTPU_SVD_TIER", raising=False)
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-    eng_u = FxEngine(cfg, fused=False)
-    vu = to_complex(eng_u.step(eng_u.prepare_block(x), delays,
-                               eng_u.fresh_history())[0])
-    scale = np.abs(vu).max()
-    diff = np.abs(v_tier - v_full).max()
-    assert diff > 0                    # the knob binds (fresh executable)
-    assert diff < 3.1e-5 * scale       # tier error under the floor
-    np.testing.assert_allclose(v_tier, vu, atol=5e-5 * scale)
-    np.testing.assert_allclose(v_full, vu, atol=5e-5 * scale)
-
-
-@pytest.mark.parametrize("stage,int8", [("dma", False), ("fir", False),
-                                        ("fft1", False), ("dma0", True),
-                                        ("dma", True), ("fir", True),
-                                        ("fft1", True),
-                                        ("dmapure", False),
-                                        ("dmapure", True),
-                                        ("nox", False), ("nox", True),
-                                        ("dma,nox", False),
-                                        ("dmax2", False),
-                                        ("firflat", False),
-                                        ("nosum", False),
-                                        ("nosum", True),
-                                        ("firflat", True)])
-def test_fused_ablate_stages_build_and_run(monkeypatch, stage, int8):
-    """FXTPU_FUSED_ABLATE truncates the kernel after a stage for on-chip
-    time attribution (outputs wrong BY DESIGN — this only asserts every
-    stage knob still BUILDS and runs, so a hardware ablation battery
-    can't die on a stale debug path)."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_ABLATE", stage)
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        kw = dict(ingest_dtype="int8") if int8 else {}
-        ntaps = 32 if int8 else 4  # dma0/int8 exercises the SVD slab path
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               ntaps=ntaps, clamp_num_samp=False, **kw)
-        eng = FxEngine(cfg, fused=True)
-        iq, delays, hist = eng.example_inputs(seed=2)
-        vis, _ = eng.step(iq, delays, hist)
-        assert np.all(np.isfinite(to_complex(vis)))
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_svd_tol_env_routing_and_errors(monkeypatch):
-    """The 'auto' fused-routing check factorizes at the SAME tolerance
-    the kernel build will (r3 review: the env override changed the
-    kernel tier but not the route).  FXTPU_SVD_TOL=0 keeps full rank —
-    routing declines the deep-tap fused path; a malformed value fails
-    with a named error, not a bare float() traceback."""
-    from fxtpu.fx import _deep_svd_applies
-    from fxtpu.ops.pfb_pallas import _trace_env
-    from fxtpu.ops.window import pfb_window
-
-    w = pfb_window(32, 256, "hamming").reshape(32, 256)
-    assert _deep_svd_applies(w, 256)
-    monkeypatch.setenv("FXTPU_SVD_TOL", "0")
-    assert not _deep_svd_applies(w, 256)  # full rank -> no fused deep-tap
-    monkeypatch.setenv("FXTPU_SVD_TOL", "1e-5x")
-    with pytest.raises(ValueError, match="FXTPU_SVD_TOL"):
-        _trace_env()
-
-
-def test_fresh_engine_honors_precision_env_no_cache_clears(monkeypatch):
-    """r2 review: flipping FXTPU_FFT_PRECISION and building a FRESH
-    engine must actually change the numbers.  Previously the module-level
-    _fx_call jit cache (keyed only on shapes/statics) served the stale
-    executable while _STEP_CACHE — keyed on the env var — pretended the
-    change took effect.  Deliberately NO manual cache clearing here:
-    this is the library user's contract."""
-    cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                           clamp_num_samp=False)
-    rng = np.random.default_rng(9)
-    blocks = [(rng.normal(size=(2, cfg.num_samp))
-               + 1j * rng.normal(size=(2, cfg.num_samp))
-               ).astype(np.complex64) for _ in range(2)]
-    delays = jnp.zeros((2, 2), jnp.float32)
-
-    def run():
-        eng = FxEngine(cfg, fused=True)
-        v, _ = eng.multi_step(eng.prepare_batch(blocks), delays,
-                              eng.fresh_history())
-        return to_complex(v)
-
-    monkeypatch.delenv("FXTPU_FFT_PRECISION", raising=False)
-    v_high = run()
-    monkeypatch.setenv("FXTPU_FFT_PRECISION", "default")
-    v_1p = run()
-    scale = np.abs(v_high).max()
-    diff = np.abs(v_1p - v_high).max() / scale
-    assert 1e-6 < diff < 2e-2, diff
-    # and flipping BACK restores the high-precision numbers exactly
-    monkeypatch.delenv("FXTPU_FFT_PRECISION", raising=False)
-    np.testing.assert_array_equal(run(), v_high)
-
-
-def test_resolve_fused_honors_highest_precision(monkeypatch):
-    """'auto' must stay on the XLA path at FXTPU_FFT_PRECISION=highest —
-    the fused kernel caps at HIGH (3-pass); only cfft implements 6-pass."""
-    import jax as _jax
-
-    from fxtpu.fx import _resolve_fused
-
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    assert _resolve_fused("auto", 256, 4, 32, 2) is True
-    monkeypatch.setenv("FXTPU_FFT_PRECISION", "highest")
-    assert _resolve_fused("auto", 256, 4, 32, 2) is False
-    # an explicit fused=True still forces the kernel (with a warning at
-    # trace time) — the knob only steers 'auto'
-    assert _resolve_fused(True, 256, 4, 32, 2) is True
-
-
-class TestInt8NativeFlagshipShape(TestInt8NativeFused):
-    """The production flagship shape at int8 ingest width (bench config
-    ``default_int8``): 4096 bins -> 1024 PACKED int32 lanes (vs 64 in the
-    256-bin tests) through the direct 4-tap loop."""
-
-    NS, NBINS, NTAPS = 2**15, 4096, 4
-
-
-def test_int8_deep_nbuf3_multi_tile_parity(monkeypatch):
-    """nbuf=3 (two DMAs in flight) on the int8-native deep-tap SVD shape
-    with K>1 AND n_tiles>1: the warm-start + lookahead-2 prefetch walks
-    the merged-rows copy grid across block boundaries."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_NBUF", "3")
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        t = TestInt8NativeDeepMultiTile()
-        t.test_multi_step_matches_sequential()
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-@pytest.mark.parametrize("nbuf,split", [(3, "0"), (4, "1")])
-def test_fused_deep_dma_pipeline_matches_unfused(monkeypatch, nbuf, split):
-    """FXTPU_FUSED_NBUF > 2 (slab ring with nbuf-1 DMAs in flight) and
-    FXTPU_FUSED_SPLITDMA (per-(channel, plane) descriptors) change ONLY
-    the DMA schedule, never the numbers — streamed multi-block parity
-    against the unfused path at both settings."""
-    from jax import tree
-
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_NBUF", str(nbuf))
-    monkeypatch.setenv("FXTPU_FUSED_SPLITDMA", split)
-    # the env knobs are read at _fx_call trace time: drop every cached
-    # trace (step closures AND the inner jitted call) so they re-read
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               clamp_num_samp=False)
-        rng = np.random.default_rng(7)
-        k = 3
-        blocks = [(rng.normal(size=(2, cfg.num_samp))
-                   + 1j * rng.normal(size=(2, cfg.num_samp))
-                   ).astype(np.complex64) for _ in range(k)]
-        delays = jnp.zeros((k, 2), jnp.float32)
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        iq_u = tree.map(lambda *xs: jnp.stack(xs),
-                        *[eng_u.prepare_block(b) for b in blocks])
-        vu, hu = eng_u.multi_step(iq_u, delays, eng_u.fresh_history())
-        vf, hf = eng_f.multi_step(eng_f.prepare_batch(blocks),
-                                  delays, eng_f.fresh_history())
-        scale = np.abs(to_complex(vu)).max()
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=2e-5 * scale)
-        np.testing.assert_allclose(to_complex(hf), to_complex(hu),
-                                   atol=1e-6)
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-@pytest.mark.parametrize("nbuf", ["0", "3"])
-def test_fused_static_slot_matches_unfused(monkeypatch, nbuf):
-    """FXTPU_FUSED_STATIC_SLOT=1 (slot-specialized DMA pipeline: one
-    pl.when branch per slab slot with constant slot indices) is a pure
-    schedule change — streamed multi-block parity against the unfused
-    path at nbuf=2 (default) and nbuf=3 (lookahead-2)."""
-    from jax import tree
-
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_STATIC_SLOT", "1")
-    if nbuf != "0":
-        monkeypatch.setenv("FXTPU_FUSED_NBUF", nbuf)
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               clamp_num_samp=False)
-        rng = np.random.default_rng(11)
-        k = 3
-        blocks = [(rng.normal(size=(2, cfg.num_samp))
-                   + 1j * rng.normal(size=(2, cfg.num_samp))
-                   ).astype(np.complex64) for _ in range(k)]
-        delays = jnp.zeros((k, 2), jnp.float32)
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        iq_u = tree.map(lambda *xs: jnp.stack(xs),
-                        *[eng_u.prepare_block(b) for b in blocks])
-        vu, hu = eng_u.multi_step(iq_u, delays, eng_u.fresh_history())
-        vf, hf = eng_f.multi_step(eng_f.prepare_batch(blocks),
-                                  delays, eng_f.fresh_history())
-        scale = np.abs(to_complex(vu)).max()
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=2e-5 * scale)
-        np.testing.assert_allclose(to_complex(hf), to_complex(hu),
-                                   atol=1e-6)
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_int8_static_slot_multi_tile_parity(monkeypatch):
-    """Static-slot pipeline on the int8-native deep-tap SVD shape with
-    K>1 and n_tiles>1 (the full merged-rows copy grid)."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_STATIC_SLOT", "1")
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        t = TestInt8NativeDeepMultiTile()
-        t.test_multi_step_matches_sequential()
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_fused_local_halo_matches_unfused(monkeypatch):
-    """FXTPU_FUSED_LOCAL_HALO=1 carries each tile's raw tail in a VMEM
-    scratch instead of re-reading the pad halo rows from HBM (1.5x read
-    amplification at the flagship tile) — a pure DMA-schedule change, so
-    streamed multi-block output AND carried history must match the
-    unfused path bit-for-bit with the default kernel's tolerances."""
-    from jax import tree
-
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_LOCAL_HALO", "1")
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               clamp_num_samp=False)
-        rng = np.random.default_rng(23)
-        k = 3
-        blocks = [(rng.normal(size=(2, cfg.num_samp))
-                   + 1j * rng.normal(size=(2, cfg.num_samp))
-                   ).astype(np.complex64) for _ in range(k)]
-        delays = jnp.zeros((k, 2), jnp.float32)
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        iq_u = tree.map(lambda *xs: jnp.stack(xs),
-                        *[eng_u.prepare_block(b) for b in blocks])
-        vu, hu = eng_u.multi_step(iq_u, delays, eng_u.fresh_history())
-        vf, hf = eng_f.multi_step(eng_f.prepare_batch(blocks),
-                                  delays, eng_f.fresh_history())
-        scale = np.abs(to_complex(vu)).max()
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=2e-5 * scale)
-        np.testing.assert_allclose(to_complex(hf), to_complex(hu),
-                                   atol=1e-6)
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_fused_banded_shallow_matches_unfused(monkeypatch):
-    """FXTPU_FUSED_BANDED=1 routes SHALLOW windows through the banded
-    MXU conv at full rank — an exact reformulation of the direct tap
-    loop (design.md §8h: the tap loop's shifted VPU slab reads are the
-    flagship compute wall), so streamed multi-block output and history
-    must match the unfused path at the default tolerances."""
-    from jax import tree
-
-    from fxtpu.fx import _STEP_CACHE, _deep_svd_applies
-    from fxtpu.ops import pfb_pallas
-    from fxtpu.ops.window import pfb_window
-
-    monkeypatch.setenv("FXTPU_FUSED_BANDED", "1")
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        w = pfb_window(4, 256, "hamming").reshape(4, 256)
-        assert _deep_svd_applies(w, 256)  # the knob flips the routing
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**13, nbins=256,
-                               clamp_num_samp=False)
-        rng = np.random.default_rng(31)
-        k = 3
-        blocks = [(rng.normal(size=(2, cfg.num_samp))
-                   + 1j * rng.normal(size=(2, cfg.num_samp))
-                   ).astype(np.complex64) for _ in range(k)]
-        delays = jnp.zeros((k, 2), jnp.float32)
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        iq_u = tree.map(lambda *xs: jnp.stack(xs),
-                        *[eng_u.prepare_block(b) for b in blocks])
-        vu, hu = eng_u.multi_step(iq_u, delays, eng_u.fresh_history())
-        vf, hf = eng_f.multi_step(eng_f.prepare_batch(blocks),
-                                  delays, eng_f.fresh_history())
-        scale = np.abs(to_complex(vu)).max()
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=2e-5 * scale)
-        np.testing.assert_allclose(to_complex(hf), to_complex(hu),
-                                   atol=1e-6)
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_int8_local_halo_multi_tile_parity(monkeypatch):
-    """Local-halo tail carry on the int8-native deep-tap SVD shape with
-    K>1 and n_tiles>1: the raw previous-tile front rows now arrive from
-    the carry scratch instead of the HBM re-read, including across block
-    boundaries (the int8 raw-tail history contract)."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_LOCAL_HALO", "1")
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        t = TestInt8NativeDeepMultiTile()
-        t.test_multi_step_matches_sequential()
-        t.test_streaming_chain_matches_dequantized_unfused()
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_spectrometer_pallas_ntaps1_history_empty():
-    """ntaps=1 (no FIR memory): the carried history must be the EMPTY
-    tail — the old ``rows[:, -(ntaps - 1):]`` slice was ``-0:``, i.e. the
-    whole block, which blows up the next call's framing (r2 review
-    finding)."""
-    from fxtpu.ops.pfb_pallas import spectrometer_pallas
-    from fxtpu.ops.window import pfb_window
-    nbins, ntaps, ns = 256, 1, 2**12
-    w2d = jnp.asarray(pfb_window(ntaps, nbins).reshape(ntaps, nbins),
-                      jnp.float32)
-    rng = np.random.default_rng(3)
-    x = (rng.normal(size=(2, ns)) + 1j * rng.normal(size=(2, ns))
-         ).astype(np.complex64)
-    y = (rng.normal(size=(2, ns)) + 1j * rng.normal(size=(2, ns))
-         ).astype(np.complex64)
-    z0 = pl_ops.zero_history_planes((2,), nbins, ntaps)
-    g1, h1 = spectrometer_pallas(from_complex(x), w2d, nbins, z0)
-    assert h1.re.shape == (2, 0, nbins)
-    w1, _ = pl_ops.spectrometer_planes(
-        pl_ops.dc_remove_planes(from_complex(x)), w2d, nbins)
-    scale = np.abs(to_complex(w1)).max()
-    np.testing.assert_allclose(to_complex(g1), to_complex(w1),
-                               atol=3e-6 * scale)
-    # the (empty) history feeds the next block cleanly
-    g2, h2 = spectrometer_pallas(from_complex(y), w2d, nbins, h1)
-    assert h2.re.shape == (2, 0, nbins)
-
-
-def test_deep_svd_tolerance_follows_active_tol(monkeypatch):
-    """'auto' routing must match the tolerance _fx_call will actually
-    factorize at (r2 review finding) — including the FXTPU_SVD_TOL
-    override.  A window full-rank at 1e-7 but factorizable at the 1e-5
-    default counts as deep-SVD-capable at the default for BOTH ingest
-    widths (the tiers unified in r4), and stops counting when the env
-    knob tightens the tolerance to 1e-7."""
-    from fxtpu.fx import _deep_svd_applies
-    rng = np.random.default_rng(0)
-    ntaps, nbins = 32, 256
-    u = rng.normal(size=(ntaps, 6))
-    v = rng.normal(size=(6, nbins))
-    w = u @ v
-    s0 = np.linalg.svd(w, compute_uv=False)[0]
-    # noise singular values ~1e-6*s0: above 1e-7 (full rank at the
-    # strict tier), below 1e-5 (rank 6 at the default)
-    sigma = 1e-6 * s0 / (np.sqrt(ntaps) + np.sqrt(nbins))
-    w = w + sigma * rng.normal(size=w.shape)
-    ss = np.linalg.svd(w, compute_uv=False)
-    assert np.sum(ss > 1e-7 * ss[0]) >= ntaps      # full rank at strict
-    assert np.sum(ss > 1e-5 * ss[0]) < ntaps       # factorizable default
-    monkeypatch.delenv("FXTPU_SVD_TOL", raising=False)
-    assert _deep_svd_applies(w, nbins, int8=False)
-    assert _deep_svd_applies(w, nbins, int8=True)
-    monkeypatch.setenv("FXTPU_SVD_TOL", "1e-7")
-    assert not _deep_svd_applies(w, nbins, int8=False)
-    assert not _deep_svd_applies(w, nbins, int8=True)
-
-
-def test_resolve_fused_auto_routing(monkeypatch):
-    """The production 'auto' routing decision (fx._resolve_fused): ON for
-    every supported shape on TPU — shallow taps unconditionally, deep
-    taps only with the SVD factorization — and OFF on CPU.  CPU tests
-    always see auto=off, so without pinning this the TPU-side predicate
-    could invert with zero failing tests."""
-    import jax as _jax
-
-    from fxtpu.fx import _resolve_fused
-
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    assert _resolve_fused("auto", 4096, 4, 512)          # flagship
-    assert _resolve_fused("auto", 8192, 16, 256)         # shallow cap
-    assert _resolve_fused("auto", 8192, 32, 256, deep_svd=True)
-    assert not _resolve_fused("auto", 8192, 32, 256, deep_svd=False)
-    # unsupported shapes refuse even when forced
-    assert not _resolve_fused(True, 4096, 1, 512)        # ntaps < 2
-    assert not _resolve_fused("auto", 4096, 4, 7)        # no valid tile
-
-    monkeypatch.setattr(_jax, "default_backend", lambda: "cpu")
-    assert not _resolve_fused("auto", 4096, 4, 512)      # auto off on CPU
-    assert _resolve_fused(True, 4096, 4, 512)            # explicit force
-
-
-@pytest.mark.parametrize("nbins,ntaps,frames,nch", [
-    (256, 2, 24, 2),     # minimum taps
-    (384, 3, 16, 2),     # non-power-of-two nbins (3*128)
-    (768, 5, 40, 2),     # odd taps, odd frame count x tile
-    (1024, 8, 16, 3),    # odd channel count (3 baselines)
-    (256, 9, 32, 2),     # taps just above the 8-row halo pad
-    (2048, 16, 32, 2),   # shallow-tap cap
-])
-def test_fused_step_shape_sweep(nbins, ntaps, frames, nch):
-    """Edge-shape sweep of the fused kernel against the unfused planes
-    path: non-power-of-two nbins, odd tap counts straddling the 8-row
-    halo pad, odd channel counts, frame counts that exercise tile
-    selection.  The main suites pin only a handful of shapes; tile/halo
-    bookkeeping bugs live at the edges."""
-    from fxtpu.ops.pfb_pallas import supported
-    ns = frames * nbins
-    assert supported(nbins, ntaps, frames, nch), (nbins, ntaps, frames)
-    cfg = dict(mode="SPECTRUM", nchan=nch, num_samp=ns, nbins=nbins,
-               ntaps=ntaps, clamp_num_samp=False)
-    eng_f = FxEngine(CorrelatorConfig(**cfg), fused=True)
-    eng_u = FxEngine(CorrelatorConfig(**cfg), fused=False)
-    rng = np.random.default_rng(nbins + ntaps)
-    blocks = [(rng.normal(size=(nch, ns)) + 1j * rng.normal(size=(nch, ns))
-               ).astype(np.complex64) for _ in range(2)]
-    d = jnp.asarray([0.0] + [2.1e-7] * (nch - 1), jnp.float32)
-    hf, hu = eng_f.fresh_history(), eng_u.fresh_history()
-    for i, b in enumerate(blocks):   # second block runs on carried history
-        vf, hf = eng_f.step(eng_f.prepare_block(b), d, hf)
-        vu, hu = eng_u.step(eng_u.prepare_block(b), d, hu)
-        cf, cu = to_complex(vf), to_complex(vu)
-        scale = np.abs(cu).max()
-        np.testing.assert_allclose(cf, cu, atol=5e-5 * scale,
-                                   err_msg=f"block {i}")
-
-
-def _run_multi_tile_vs_unfused():
-    """Streamed 3-block multi-tile fused-vs-unfused comparison at
-    nbins=1024 (n1=8, n_tiles > 1) — exercises the halo/tail
-    bookkeeping under WHATEVER slab layout the env selects; callers
-    monkeypatch FXTPU_FUSED_PRETILED/_RS/_LOCAL_HALO around it."""
-    from jax import tree
-
-    from fxtpu.ops.pfb_pallas import _kernel_factor
-    n1, n2 = _kernel_factor(1024)
-    assert n1 % 8 == 0 and n2 == 128  # the pretiled gate CAN engage
-
-    cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**15, nbins=1024,
-                           ntaps=4, clamp_num_samp=False)
-    rng = np.random.default_rng(47)
-    k = 3
-    blocks = [(rng.normal(size=(2, cfg.num_samp))
-               + 1j * rng.normal(size=(2, cfg.num_samp))
-               ).astype(np.complex64) for _ in range(k)]
-    delays = jnp.tile(jnp.asarray([[0.0, 3.3e-7]], jnp.float32), (k, 1))
-    eng_u = FxEngine(cfg, fused=False)
-    eng_f = FxEngine(cfg, fused=True)
-    iq_u = tree.map(lambda *xs: jnp.stack(xs),
-                    *[eng_u.prepare_block(b) for b in blocks])
-    vu, hu = eng_u.multi_step(iq_u, delays, eng_u.fresh_history())
-    vf, hf = eng_f.multi_step(eng_f.prepare_batch(blocks),
-                              delays, eng_f.fresh_history())
-    scale = np.abs(to_complex(vu)).max()
-    np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                               atol=2e-5 * scale)
-    np.testing.assert_allclose(to_complex(hf), to_complex(hu), atol=1e-6)
-
-
-def test_legacy_layout_multi_tile_matches_unfused():
-    """The production DEFAULT (legacy [rows, nbins]-lane slab — the r5
-    same-session A/B measured the pretiled family 21% slower at every
-    aspect, design.md §8i) through the streamed multi-tile case."""
-    from fxtpu.ops import pfb_pallas
-
-    assert pfb_pallas._trace_env()[7] is False  # default: legacy (§8i)
-    _run_multi_tile_vs_unfused()
-
-
-def test_retile_stack_multi_tile_matches_unfused(monkeypatch):
-    """FXTPU_FUSED_RETILE=stack swaps the kernel's lane->sublane retile
-    lowering (stride-n1 sublane-scatter reshape -> (8,128)-tile
-    permutation stack + strided per-frame slices) without changing the
-    dataflow: the same values reach the same dots, so the streamed
-    multi-tile output must match the unfused oracle exactly as the
-    default lowering does."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_RETILE", "stack")
-    assert pfb_pallas._trace_env()[10] == "stack"
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        _run_multi_tile_vs_unfused()
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_pretiled_layout_multi_tile_matches_unfused(monkeypatch):
-    """FXTPU_FUSED_PRETILED=1 reinterprets every sample row as its
-    n1 x n2 frame tile so the kernel never pays the [tile, nbins] ->
-    [tile, n1, n2] lane->sublane retile (kept as an A/B lever, §8i).
-    Pure layout change: streamed multi-block output and carried history
-    must match the unfused path, and _trace_env keys the caches so no
-    manual clearing is needed by library users (only the suite's
-    cross-test hygiene below)."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_PRETILED", "1")
-    assert pfb_pallas._trace_env()[7] is True
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        _run_multi_tile_vs_unfused()
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_pretiled_local_halo_matches_unfused(monkeypatch):
-    """Pretiled layout x FXTPU_FUSED_LOCAL_HALO: the tail-carry scratch
-    rows scale by n1 too (the two features compose in the DMA front
-    fill)."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_PRETILED", "1")
-    monkeypatch.setenv("FXTPU_FUSED_LOCAL_HALO", "1")
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        _run_multi_tile_vs_unfused()
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_pretiled_rs_aspect_matches_unfused(monkeypatch):
-    """FXTPU_FUSED_RS picks an INTERMEDIATE pretile aspect: the slab
-    rows are [rs x nbins/rs] reinterprets (wider DMA rows than the full
-    pretile's [n1 x n2]) and the kernel pays the remaining n1/rs-way
-    lane->sublane split at the FFT-input reshape (design.md §8i: the
-    full pretile's 128-lane rows DMA at ~half the wide-slab rate).
-    nbins=2048 -> n1=16, so rs=8 is a genuine 2-way split; results must
-    match the unfused oracle across a streamed multi-block run."""
-    from jax import tree
-
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-    from fxtpu.ops.pfb_pallas import _kernel_factor
-
-    n1, n2 = _kernel_factor(2048)
-    assert n1 == 16 and n2 == 128
-
-    monkeypatch.setenv("FXTPU_FUSED_PRETILED", "1")
-    monkeypatch.setenv("FXTPU_FUSED_RS", "8")
-    assert pfb_pallas._trace_env()[8] == 8  # FXTPU_FUSED_RS slot
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**16,
-                               nbins=2048, ntaps=4, clamp_num_samp=False)
-        rng = np.random.default_rng(53)
-        k = 2
-        blocks = [(rng.normal(size=(2, cfg.num_samp))
-                   + 1j * rng.normal(size=(2, cfg.num_samp))
-                   ).astype(np.complex64) for _ in range(k)]
-        delays = jnp.tile(jnp.asarray([[0.0, 3.3e-7]], jnp.float32),
-                          (k, 1))
-        eng_u = FxEngine(cfg, fused=False)
-        eng_f = FxEngine(cfg, fused=True)
-        iq_u = tree.map(lambda *xs: jnp.stack(xs),
-                        *[eng_u.prepare_block(b) for b in blocks])
-        vu, hu = eng_u.multi_step(iq_u, delays, eng_u.fresh_history())
-        vf, hf = eng_f.multi_step(eng_f.prepare_batch(blocks),
-                                  delays, eng_f.fresh_history())
-        scale = np.abs(to_complex(vu)).max()
-        np.testing.assert_allclose(to_complex(vf), to_complex(vu),
-                                   atol=2e-5 * scale)
-        np.testing.assert_allclose(to_complex(hf), to_complex(hu),
-                                   atol=1e-6)
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()
-
-
-def test_pretiled_rs_invalid_rejected(monkeypatch):
-    """A non-multiple-of-8 or non-divisor FXTPU_FUSED_RS fails loudly at
-    trace time instead of silently producing a scrambled layout."""
-    from fxtpu.fx import _STEP_CACHE
-    from fxtpu.ops import pfb_pallas
-
-    monkeypatch.setenv("FXTPU_FUSED_PRETILED", "1")
-    monkeypatch.setenv("FXTPU_FUSED_RS", "12")
-    _STEP_CACHE.clear()
-    pfb_pallas._fx_call.clear_cache()
-    try:
-        cfg = CorrelatorConfig(mode="SPECTRUM", num_samp=2**15,
-                               nbins=1024, ntaps=4, clamp_num_samp=False)
-        eng = FxEngine(cfg, fused=True)
-        b = np.zeros((2, cfg.num_samp), np.complex64)
-        with pytest.raises(ValueError, match="FXTPU_FUSED_RS"):
-            eng.step(eng.prepare_block(b),
-                     jnp.zeros((2,), jnp.float32), eng.fresh_history())
-    finally:
-        _STEP_CACHE.clear()
-        pfb_pallas._fx_call.clear_cache()

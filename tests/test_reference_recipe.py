@@ -1,7 +1,7 @@
 """Product-contract test that executes the REFERENCE's exact parsing lines.
 
-VERDICT r1 item 10: earlier tests reimplemented the reference's CSV
-parsing recipe; this one extracts the literal recipe lines from
+Rather than reimplementing the reference's CSV parsing recipe, this
+extracts the literal recipe lines from
 ``/root/reference/effex/post_process.py`` (header split at :201-204,
 skiprows selection at :205-209, complex128 loadtxt at :217) at runtime and
 ``exec``s them unmodified against files fxtpu wrote — byte-level proof
